@@ -1,0 +1,173 @@
+// K1: elementwise Montgomery product, and K2: batched M-point DIF NTT.
+//
+// K1 replaces openzl_tpu/ops/ntt_kernel.py `_make_mul_kernel` (:56, through
+// `mont_mul()` :259 and `mont_scale()` :268). One thread per element; the
+// sixteen-bit limbs of a column are read by neighbouring threads from
+// neighbouring addresses (limb-planar layout), so every load and store is
+// coalesced. Bound on the card: integer multiply throughput (NW^2 64-bit
+// multiply-adds for the product and as many for the reduction per element)
+// with 3 x 4 n_limbs bytes of traffic per element; the design keeps the
+// whole product in registers and touches device memory once per operand.
+// Scale mode reads one broadcast element (b strides 0 over elements).
+//
+// K2 replaces `_make_small_ntt_kernel` (:160, through `small_ntt()` :200):
+// all log2(M) decimation-in-frequency stages of an M-point transform along
+// axis 1 of x (n_limbs, M, lanes), output in bit-reversed order along M,
+// with an optional fused elementwise post-twiddle (the four-step level
+// twiddle). A block owns COLS lanes; its M x COLS elements and the stage
+// twiddles are staged in shared memory once, every stage runs on them with
+// one thread per butterfly, and the result is written once. Bound: the
+// M/2 log2(M) Montgomery products per lane (compute), so the design reads
+// and writes each element once per launch instead of once per stage. The
+// TPU's M <= 64 and rolled-stage layout were VMEM artefacts; here M is any
+// power of two up to 64 chosen by the caller, and the twiddle table is
+// (n_limbs, log2 M, M/2) with entry j of stage s = w_M^(2^s j).
+#include <cuda_runtime.h>
+
+#include "field.cuh"
+
+namespace {
+
+template <int NW>
+__global__ void mont_mul_kernel(int32_t* out, const int32_t* a, const int32_t* b, int64_t N,
+                                int64_t b_ls, int64_t b_es, FieldParams<NW> f) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  F1<NW> F{f};
+  Fp<NW> x = load_fp<NW>(a, N, i);
+  Fp<NW> y = load_fp<NW>(b, b_ls, i * b_es);
+  store_fp<NW>(out, N, i, F.mul(x, y));
+}
+
+template <int NW>
+int launch_mont_mul(void* out, const void* a, const void* b, int64_t N, int64_t b_ls,
+                    int64_t b_es, const uint32_t* p, uint32_t n0, cudaStream_t st) {
+  const int threads = 256;
+  int64_t blocks = (N + threads - 1) / threads;
+  if (blocks > 0)
+    mont_mul_kernel<NW><<<(unsigned)blocks, threads, 0, st>>>(
+        (int32_t*)out, (const int32_t*)a, (const int32_t*)b, N, b_ls, b_es,
+        make_params<NW>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+// shared layout: data[w][row][col] then tw[s][j][w]
+template <int NW>
+__global__ void small_ntt_kernel(int32_t* out, const int32_t* x, const int32_t* stage_tw,
+                                 const int32_t* post_tw, int M, int log_m, int64_t lanes,
+                                 int cols, FieldParams<NW> f) {
+  extern __shared__ uint32_t sm[];
+  uint32_t* data = sm;
+  uint32_t* tw = sm + (size_t)NW * M * cols;
+  const int half = M / 2;
+  const int tx = threadIdx.x;  // lane within the block
+  const int ty = threadIdx.y;  // butterfly index
+  const int64_t lane = (int64_t)blockIdx.x * cols + tx;
+  const bool live = lane < lanes;
+  F1<NW> F{f};
+
+  // stage twiddles, (n_limbs, log_m, half) limbs -> words
+  const int n_tw = log_m * half;
+  for (int e = ty * cols + tx; e < n_tw; e += cols * half) {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      uint32_t lo = (uint32_t)stage_tw[(int64_t)(2 * w) * n_tw + e];
+      uint32_t hi = (uint32_t)stage_tw[(int64_t)(2 * w + 1) * n_tw + e];
+      tw[(size_t)e * NW + w] = lo | (hi << 16);
+    }
+  }
+  const int64_t ls = (int64_t)M * lanes;  // limb stride of x / out / post
+  const int rows[2] = {ty, ty + half};
+  if (live) {
+    for (int r = 0; r < 2; ++r) {
+      Fp<NW> v = load_fp<NW>(x, ls, (int64_t)rows[r] * lanes + lane);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) data[((size_t)w * M + rows[r]) * cols + tx] = v.w[w];
+    }
+  }
+  __syncthreads();
+
+  for (int s = 0; s < log_m; ++s) {
+    const int h = M >> (s + 1);
+    const int blk = ty / h, i = ty % h;
+    const int ur = blk * 2 * h + i, tr = ur + h;
+    if (live) {
+      Fp<NW> u, t, wv;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        u.w[w] = data[((size_t)w * M + ur) * cols + tx];
+        t.w[w] = data[((size_t)w * M + tr) * cols + tx];
+        wv.w[w] = tw[((size_t)s * half + i) * NW + w];
+      }
+      Fp<NW> lo = F.add(u, t);
+      Fp<NW> hi = F.mul(F.sub(u, t), wv);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        data[((size_t)w * M + ur) * cols + tx] = lo.w[w];
+        data[((size_t)w * M + tr) * cols + tx] = hi.w[w];
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!live) return;
+  for (int r = 0; r < 2; ++r) {
+    Fp<NW> v;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) v.w[w] = data[((size_t)w * M + rows[r]) * cols + tx];
+    const int64_t idx = (int64_t)rows[r] * lanes + lane;
+    if (post_tw) v = F.mul(v, load_fp<NW>(post_tw, ls, idx));
+    store_fp<NW>(out, ls, idx, v);
+  }
+}
+
+template <int NW>
+int launch_small_ntt(void* out, const void* x, const void* stage_tw, const void* post_tw, int M,
+                     int64_t lanes, const uint32_t* p, uint32_t n0, cudaStream_t st) {
+  if (M < 2 || M > 64 || (M & (M - 1))) return (int)cudaErrorInvalidValue;
+  int log_m = 0;
+  while ((1 << log_m) < M) ++log_m;
+  const int half = M / 2;
+  const int cols = 256 / half > 0 ? 256 / half : 1;
+  size_t smem = sizeof(uint32_t) * NW * ((size_t)M * cols + (size_t)log_m * half);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(small_ntt_kernel<NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int64_t blocks = (lanes + cols - 1) / cols;
+  dim3 block(cols, half);
+  if (blocks > 0)
+    small_ntt_kernel<NW><<<(unsigned)blocks, block, smem, st>>>(
+        (int32_t*)out, (const int32_t*)x, (const int32_t*)stage_tw, (const int32_t*)post_tw, M,
+        log_m, lanes, cols, make_params<NW>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ozl_mont_mul(void* out, const void* a, const void* b, int64_t N, int64_t b_ls,
+                            int64_t b_es, int n_limbs, const void* p, uint32_t n0,
+                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* pw = (const uint32_t*)p;
+  switch (n_limbs) {
+    case 2: return launch_mont_mul<1>(out, a, b, N, b_ls, b_es, pw, n0, st);
+    case 16: return launch_mont_mul<8>(out, a, b, N, b_ls, b_es, pw, n0, st);
+    case 24: return launch_mont_mul<12>(out, a, b, N, b_ls, b_es, pw, n0, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int ozl_small_ntt(void* out, const void* x, const void* stage_tw, const void* post_tw,
+                             int M, int64_t lanes, int n_limbs, const void* p, uint32_t n0,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* pw = (const uint32_t*)p;
+  switch (n_limbs) {
+    case 2: return launch_small_ntt<1>(out, x, stage_tw, post_tw, M, lanes, pw, n0, st);
+    case 16: return launch_small_ntt<8>(out, x, stage_tw, post_tw, M, lanes, pw, n0, st);
+    case 24: return launch_small_ntt<12>(out, x, stage_tw, post_tw, M, lanes, pw, n0, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

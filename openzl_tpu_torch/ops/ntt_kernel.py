@@ -1,0 +1,215 @@
+"""Kernels K1 (elementwise Montgomery product) and K2 (batched small NTT).
+
+Port of `openzl_tpu/ops/ntt_kernel.py`. The CUDA sources are
+`openzl_tpu_torch/csrc/ntt_kernel.cu` (design notes there); this module
+holds their wrappers, launch counters and plain torch versions.
+
+Dispatch: a CUDA tensor launches the kernel (a failed build or launch
+raises), a CPU tensor runs the plain version. Nothing moves between devices.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from openzl_tpu.fields.spec import FieldSpec
+
+from ..fields import limb
+from ..utils import build
+
+K1 = build.KernelInfo(
+    name="mont_mul",
+    source="openzl_tpu_torch/csrc/ntt_kernel.cu",
+    replaces="openzl_tpu/ops/ntt_kernel.py:56",
+)
+K2 = build.KernelInfo(
+    name="small_ntt",
+    source="openzl_tpu_torch/csrc/ntt_kernel.cu",
+    replaces="openzl_tpu/ops/ntt_kernel.py:160",
+)
+
+#: largest transform one K2 launch takes (the four-step NTT splits
+#: longer ones); 64 points keep a block's tile and twiddles in 48 KB of
+#: shared memory at 16 limbs
+M_MAX = 64
+
+
+@functools.lru_cache(maxsize=None)
+def word_consts(spec: FieldSpec):
+    """(p as little-endian uint32 words, -p^-1 mod 2^32): the 32-bit-word
+    Montgomery constants the CUDA kernels use (R is unchanged)."""
+    n_words = spec.n_limbs // 2
+    if spec.n_limbs % 2:
+        raise ValueError(f"{spec.name}: kernels need an even limb count")
+    p = spec.modulus
+    words = np.array([(p >> (32 * i)) & 0xFFFFFFFF for i in range(n_words)], dtype=np.uint32)
+    n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
+    return words, n0
+
+
+def device_kind(*ts: torch.Tensor) -> str:
+    """'cuda' or 'cpu' for a set of tensors on one device; raises otherwise."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
+def _check_cuda(spec: FieldSpec, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.shape[0] != spec.n_limbs:
+            raise ValueError(
+                f"kernel operand must be contiguous int32 (n_limbs, ...): {t.dtype} {tuple(t.shape)}"
+            )
+
+
+# ---------------------------------------------------------------------------
+# K1: elementwise Montgomery product
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _col_index(na: int, nb: int, device: torch.device) -> torch.Tensor:
+    i = torch.arange(na, device=device)
+    j = torch.arange(nb, device=device)
+    return (i[:, None] + j[None, :]).reshape(-1)
+
+
+def _mul_cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Schoolbook product columns of two int64 limb vectors (limb axis
+    first, same batch): (na + nb - 1, *batch), each column a lazy sum below
+    min(na, nb) 2^32."""
+    na, nb = a.shape[0], b.shape[0]
+    prod = a.unsqueeze(1) * b.unsqueeze(0)
+    cols = torch.zeros((na + nb - 1,) + a.shape[1:], dtype=torch.int64, device=a.device)
+    return cols.index_add_(0, _col_index(na, nb, a.device), prod.reshape((na * nb,) + a.shape[1:]))
+
+
+@functools.lru_cache(maxsize=None)
+def _nprime(spec: FieldSpec, device: torch.device) -> torch.Tensor:
+    """-p^-1 mod R as int64 limbs."""
+    R = 1 << (16 * spec.n_limbs)
+    v = limb._ints_to_limbs(np.array((-pow(spec.modulus, -1, R)) % R, dtype=object), spec.n_limbs)
+    return torch.as_tensor(v.astype(np.int64), device=device)
+
+
+def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain torch K1: a b R^-1 mod p (broadcasting), Montgomery reduction
+    with the full-width N' = -p^-1 mod R: m = (T mod R) N' mod R, then
+    (T + m p) / R, each product taken as one batched outer product."""
+    n = spec.n_limbs
+    a64, b64 = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
+    shape = (1,) * (a64.ndim - 1)
+    p = limb.const(spec, "p", a64.ndim, a64.device).expand((n,) + a64.shape[1:])
+    np_ = _nprime(spec, a64.device).reshape((n,) + shape).expand((n,) + a64.shape[1:])
+    bound = 33 + n.bit_length()  # column sums of n products below 2^32, plus one
+    t = _mul_cols(a64, b64)
+    m = limb.normalize(_mul_cols(limb.normalize(t, n, bound), np_), n, bound)
+    u = t + _mul_cols(m, p)
+    full = limb.normalize(torch.cat([u, torch.zeros_like(u[:2])]), 2 * n + 1, bound)
+    return limb._cond_sub_p(spec, full[n : 2 * n], full[2 * n]).to(limb.DTYPE)
+
+
+def _launch_mul(spec: FieldSpec, a, b, b_limb_stride: int, b_elem_stride: int):
+    _check_cuda(spec, a, b)
+    words, n0 = word_consts(spec)
+    out = torch.empty_like(a)
+    N = a[0].numel()
+    code = build.lib().ozl_mont_mul(
+        out.data_ptr(), a.data_ptr(), b.data_ptr(), N, b_limb_stride, b_elem_stride,
+        spec.n_limbs, words.ctypes.data, n0, build.stream_ptr(a),
+    )
+    build.check(code, "K1 mont_mul")
+    K1.launches += 1
+    return out
+
+
+def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise a b R^-1 mod p; a and b of one shape (n_limbs, *batch)."""
+    if a.shape != b.shape:
+        raise ValueError(f"mont_mul shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+    if device_kind(a, b) == "cuda":
+        return _launch_mul(spec, a, b, a[0].numel(), 1)
+    return mont_mul_plain(spec, a, b)
+
+
+def mont_scale(spec: FieldSpec, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """a s R^-1 mod p for one field element s, shaped (n_limbs,) or
+    (n_limbs, 1, ...)."""
+    if s.numel() != spec.n_limbs:
+        raise ValueError("mont_scale takes a single field element")
+    if device_kind(a, s) == "cuda":
+        return _launch_mul(spec, a, s.reshape(spec.n_limbs).contiguous(), 1, 0)
+    return mont_mul_plain(spec, a, s.reshape((spec.n_limbs,) + (1,) * (a.ndim - 1)))
+
+
+def mont_mul_bcast(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Broadcasting front end (fields.limb.mont_mul): a broadcast single
+    element goes to the scale entry, anything else is expanded."""
+    if device_kind(a, b) == "cpu":
+        return mont_mul_plain(spec, a, b)
+    n = spec.n_limbs
+    if b.numel() == n and a.numel() >= n:
+        return mont_scale(spec, a.contiguous(), b)
+    if a.numel() == n:
+        return mont_scale(spec, b.contiguous(), a)
+    a, b = torch.broadcast_tensors(a, b)
+    return mont_mul(spec, a.contiguous(), b.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# K2: batched M-point DIF NTT, bit-reversed output, fused post-twiddle
+# ---------------------------------------------------------------------------
+
+
+def small_ntt_plain(spec, x, stage_tw, post_tw=None):
+    """Plain torch K2. x (n_limbs, M, lanes); stage_tw (n_limbs, log2 M,
+    M/2) with entry j of stage s the twiddle of butterfly j (half-width
+    h = M >> (s+1), j < h); post_tw like x or None."""
+    n, M, L = x.shape
+    log_m = M.bit_length() - 1
+    for s in range(log_m):
+        h = M >> (s + 1)
+        y = x.reshape(n, M // (2 * h), 2, h, L)
+        u, t = y[:, :, 0], y[:, :, 1]
+        tw = stage_tw[:, s, :h].reshape(n, 1, h, 1)
+        lo = limb.add(spec, u, t)
+        hi = mont_mul_plain(spec, limb.sub(spec, u, t), tw)
+        x = torch.stack([lo, hi], dim=2).reshape(n, M, L)
+    if post_tw is not None:
+        x = mont_mul_plain(spec, x, post_tw)
+    return x.to(limb.DTYPE)
+
+
+def small_ntt(spec: FieldSpec, x, stage_tw, post_tw=None):
+    """All log2(M) DIF stages of an M-point transform along axis 1 of
+    x (n_limbs, M, lanes), M a power of two <= M_MAX; output in bit-reversed
+    order along M, times post_tw elementwise when given."""
+    n, M, lanes = x.shape
+    if M & (M - 1) or not 2 <= M <= M_MAX:
+        raise ValueError(f"small_ntt: M={M} must be a power of two in [2, {M_MAX}]")
+    ops = (x, stage_tw) + ((post_tw,) if post_tw is not None else ())
+    if device_kind(*ops) == "cpu":
+        return small_ntt_plain(spec, x, stage_tw, post_tw)
+    _check_cuda(spec, *ops)
+    if stage_tw.shape != (n, M.bit_length() - 1, M // 2):
+        raise ValueError(f"small_ntt: stage_tw shape {tuple(stage_tw.shape)}")
+    if post_tw is not None and post_tw.shape != x.shape:
+        raise ValueError("small_ntt: post_tw must match x")
+    words, n0 = word_consts(spec)
+    out = torch.empty_like(x)
+    code = build.lib().ozl_small_ntt(
+        out.data_ptr(), x.data_ptr(), stage_tw.data_ptr(),
+        post_tw.data_ptr() if post_tw is not None else None,
+        M, lanes, n, words.ctypes.data, n0, build.stream_ptr(x),
+    )
+    build.check(code, "K2 small_ntt")
+    K2.launches += 1
+    return out
+

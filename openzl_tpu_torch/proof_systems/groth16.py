@@ -1,0 +1,523 @@
+"""Groth16 zk-SNARK: compile / prove / verify on the torch kernel stack.
+
+Port of the device branch of `openzl_tpu/proof_systems/groth16.py`:
+
+  * compile: QAP columns evaluated at the toxic tau by transposed sparse
+    matvecs (K1), the query scalars derived on the device, every query
+    encoded by a fixed-base MSM (K3 mixed adds);
+  * prove: u/v/w = (A z, B z, C z) by sparse matvecs (K1), H by three
+    iNTTs, three coset NTTs, the pointwise (u v - w) / Z and a coset iNTT
+    (K1, K2), then the four G1 MSMs in one bucket pipeline and the G2 MSM
+    (K3, K4); proof assembly on the host;
+  * verify: the shared pairing check (`openzl_tpu.ref.pairing`, native
+    engine when `native/libozlfield.so` is built).
+
+Randomness (toxic waste, r and s) comes from a Python `random.Random`
+exactly as in the reference, so one seed gives the same bytes in both
+packages. The QAP matches ark-groth16: domain = next power of two >=
+num_constraints + num_instance, instance-binding rows A[nc + i][i] = 1, and
+the coset trick divides by the constant Z(g w^j) = g^n - 1.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from openzl_tpu.fields.spec import FieldSpec
+from openzl_tpu.ref import curve as refc
+from openzl_tpu.ref import pairing as refpair
+from openzl_tpu.ref.pairing import BLS12_381, BN254, PairingSpec
+from openzl_tpu.utils import codec
+
+from ..curves import jacobian as jac
+from ..curves.jacobian import JPoint
+from ..eclair.compilers import R1CSCompiler
+from ..eclair.r1cs import R1CS, LinComb
+from ..fields import limb
+from ..ops import ntt as nttmod
+from ..ops.msm import fixed_base_msm, msm, msm_sets
+from ..ops.sparse import SparseFieldMatrix
+
+
+# ---------------------------------------------------------------------------
+# key / proof containers
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class VerifyingKey:
+    """Host-side verification key (affine int points)."""
+
+    pairing: PairingSpec
+    alpha_g1: tuple
+    beta_g2: tuple
+    gamma_g2: tuple
+    delta_g2: tuple
+    gamma_abc_g1: list  # per instance column (incl. ONE)
+
+    def to_bytes(self) -> bytes:
+        """ark-groth16 VerifyingKey layout: alpha_g1, beta_g2, gamma_g2,
+        delta_g2, Vec<gamma_abc_g1>."""
+        g1, g2 = self.pairing.g1, self.pairing.g2
+        w = codec.Writer()
+        w.point(g1, self.alpha_g1)
+        w.point(g2, self.beta_g2)
+        w.point(g2, self.gamma_g2)
+        w.point(g2, self.delta_g2)
+        w.vec(self.gamma_abc_g1, lambda pt: w.point(g1, pt))
+        return w.getvalue()
+
+    @classmethod
+    def from_bytes(cls, pairing: PairingSpec, data: bytes) -> "VerifyingKey":
+        g1, g2 = pairing.g1, pairing.g2
+        r = codec.Reader(data)
+        return cls(
+            pairing=pairing,
+            alpha_g1=r.point(g1),
+            beta_g2=r.point(g2),
+            gamma_g2=r.point(g2),
+            delta_g2=r.point(g2),
+            gamma_abc_g1=r.vec(lambda: r.point(g1)),
+        )
+
+    @classmethod
+    def from_reference(cls, vk) -> "VerifyingKey":
+        return cls(vk.pairing, vk.alpha_g1, vk.beta_g2, vk.gamma_g2, vk.delta_g2,
+                   list(vk.gamma_abc_g1))
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedCircuit:
+    """Sparse A/B/C (rows padded to the FFT domain) and their transposes."""
+
+    a: SparseFieldMatrix
+    b: SparseFieldMatrix
+    c: SparseFieldMatrix
+    at: SparseFieldMatrix
+    bt: SparseFieldMatrix
+    ct: SparseFieldMatrix
+    log_n: int
+    num_vars: int
+    num_instance_total: int
+
+    @classmethod
+    def from_reference(cls, prep) -> "PreparedCircuit":
+        """From a reference `PreparedCircuit`, through the COO arrays."""
+        mats = [SparseFieldMatrix.from_reference(getattr(prep, k))
+                for k in ("a", "b", "c", "at", "bt", "ct")]
+        return cls(*mats, log_n=prep.log_n, num_vars=prep.num_vars,
+                   num_instance_total=prep.num_instance_total)
+
+
+_QUERIES = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query")
+
+
+@dataclasses.dataclass
+class ProvingKey:
+    """Proving key with the query tables as batched Jacobian points on one
+    torch device."""
+
+    pairing: PairingSpec
+    vk: VerifyingKey
+    beta_g1: tuple
+    delta_g1: tuple
+    a_query: JPoint  # (num_vars,) u_k(tau) G1
+    b_g1_query: JPoint  # (num_vars,) v_k(tau) G1
+    b_g2_query: JPoint  # (num_vars,) v_k(tau) G2
+    h_query: JPoint  # (n-1,) tau^i Z(tau) / delta G1
+    l_query: JPoint  # (num_witness,) (beta u + alpha v + w) / delta G1
+    domain_log2: int
+    num_instance_total: int
+    #: sparse QAP matrices from compile time; not serialized
+    prepared: Optional[PreparedCircuit] = None
+
+    def _curves(self):
+        g1, g2 = self.pairing.g1, self.pairing.g2
+        return (g1, g1, g2, g1, g1)
+
+    @property
+    def device(self) -> torch.device:
+        return self.a_query.x.device
+
+    def to_bytes(self, compressed: bool = False) -> bytes:
+        """ark-groth16 ProvingKey member order (vk, beta_g1, delta_g1,
+        a_query, b_g1_query, b_g2_query, h_query, l_query) plus the
+        domain_log2 / num_instance_total trailer, as the reference."""
+        g1 = self.pairing.g1
+        w = codec.Writer()
+        vkb = self.vk.to_bytes()
+        w.u64(len(vkb))
+        w.bytes_(vkb)
+        w.point(g1, self.beta_g1, compressed)
+        w.point(g1, self.delta_g1, compressed)
+        for name, curve in zip(_QUERIES, self._curves()):
+            pts = jac.to_affine_ints(curve, getattr(self, name))
+            w.vec(pts, lambda pt, c=curve: w.point(c, pt, compressed))
+        w.u64(self.domain_log2)
+        w.u64(self.num_instance_total)
+        return w.getvalue()
+
+    @classmethod
+    def from_bytes(
+        cls,
+        pairing: PairingSpec,
+        data: bytes,
+        compressed: bool = False,
+        validate: bool = True,
+        device=None,
+    ) -> "ProvingKey":
+        """Deserialize; the query tables land on `device` (CPU by default).
+        `validate` checks subgroup membership of every point."""
+        g1, g2 = pairing.g1, pairing.g2
+        r = codec.Reader(data)
+        vk = VerifyingKey.from_bytes(pairing, r.bytes_(r.u64()))
+        beta_g1 = r.point(g1, compressed, validate)
+        delta_g1 = r.point(g1, compressed, validate)
+        curves = (g1, g1, g2, g1, g1)
+        queries = [r.vec(lambda c=curve: r.point(c, compressed, validate)) for curve in curves]
+        return cls(
+            pairing=pairing, vk=vk, beta_g1=beta_g1, delta_g1=delta_g1,
+            **{k: jac.from_affine_ints(c, q, device) for k, c, q in zip(_QUERIES, curves, queries)},
+            domain_log2=r.u64(), num_instance_total=r.u64(),
+        )
+
+    @classmethod
+    def from_reference(cls, pk, device=None) -> "ProvingKey":
+        """From a reference `openzl_tpu` ProvingKey: device-form queries
+        through `np.asarray` of their limb arrays, host-form ones through
+        their affine int lists."""
+        g1, g2 = pk.pairing.g1, pk.pairing.g2
+        queries = {}
+        for k, curve in zip(_QUERIES, (g1, g1, g2, g1, g1)):
+            q = getattr(pk, k)
+            if pk.host:
+                queries[k] = jac.from_affine_ints(curve, list(q), device)
+            else:
+                queries[k] = JPoint(*(limb.tensor(np.asarray(v), device) for v in q))
+        prepared = PreparedCircuit.from_reference(pk.prepared) if pk.prepared is not None else None
+        return cls(
+            pairing=pk.pairing, vk=VerifyingKey.from_reference(pk.vk),
+            beta_g1=pk.beta_g1, delta_g1=pk.delta_g1, **queries,
+            domain_log2=pk.domain_log2, num_instance_total=pk.num_instance_total,
+            prepared=prepared,
+        )
+
+
+@dataclasses.dataclass
+class Proof:
+    a: tuple  # affine G1
+    b: tuple  # affine G2
+    c: tuple  # affine G1
+
+    def to_bytes(self, pairing: PairingSpec) -> bytes:
+        """ark-groth16 Proof layout: A, B, C compressed."""
+        w = codec.Writer()
+        w.point(pairing.g1, self.a)
+        w.point(pairing.g2, self.b)
+        w.point(pairing.g1, self.c)
+        return w.getvalue()
+
+    @classmethod
+    def from_bytes(cls, pairing: PairingSpec, data: bytes) -> "Proof":
+        r = codec.Reader(data)
+        return cls(a=r.point(pairing.g1), b=r.point(pairing.g2), c=r.point(pairing.g1))
+
+
+# ---------------------------------------------------------------------------
+# QAP helpers (host, per circuit)
+# ---------------------------------------------------------------------------
+
+
+def _qap_matrices(cs: R1CS):
+    """A/B/C rows in final global columns, plus the instance-binding rows."""
+    rows_a = [cs.remap(a) for a, _, _ in cs.constraints]
+    rows_b = [cs.remap(b) for _, b, _ in cs.constraints]
+    rows_c = [cs.remap(c) for _, _, c in cs.constraints]
+    for i in range(cs.num_instance_total):
+        rows_a.append(LinComb.single(i))
+        rows_b.append(LinComb())
+        rows_c.append(LinComb())
+    return rows_a, rows_b, rows_c
+
+
+def _domain_log2(n_rows: int) -> int:
+    return max(1, (n_rows - 1).bit_length())
+
+
+def _lagrange_at(spec: FieldSpec, log_n: int, tau: int) -> List[int]:
+    """ell_j(tau) = (tau^n - 1) w^j / (n (tau - w^j)), batch-inverted."""
+    p = spec.modulus
+    n = 1 << log_n
+    w = nttmod.group_gen(spec, log_n)
+    z = (pow(tau, n, p) - 1) % p
+    n_inv = pow(n, -1, p)
+    ws = [1] * n
+    dens = [0] * n
+    wj = 1
+    for j in range(n):
+        ws[j] = wj
+        dens[j] = (tau - wj) % p
+        wj = wj * w % p
+    prefix = [1] * (n + 1)
+    for j in range(n):
+        prefix[j + 1] = prefix[j] * dens[j] % p
+    inv_all = pow(prefix[n], -1, p)
+    out = [0] * n
+    for j in range(n - 1, -1, -1):
+        inv_j = inv_all * prefix[j] % p
+        inv_all = inv_all * dens[j] % p
+        out[j] = z * ws[j] % p * inv_j % p * n_inv % p
+    return out
+
+
+def _fixed_base_host(curve, scalars: Sequence[int]):
+    G = refc.generator(curve)
+    return [refc.scalar_mul(curve, k, G) for k in scalars]
+
+
+_FB_WINDOW = 8
+
+
+def _setup_queries(g1, g2, u, v, h, l):
+    """The five query encodings: fixed-base MSMs of the canonical scalar
+    vectors (K3 mixed adds over a windowed generator table)."""
+    return (
+        fixed_base_msm(g1, u, _FB_WINDOW),
+        fixed_base_msm(g1, v, _FB_WINDOW),
+        fixed_base_msm(g2, v, _FB_WINDOW),
+        fixed_base_msm(g1, h, _FB_WINDOW),
+        fixed_base_msm(g1, l, _FB_WINDOW),
+    )
+
+
+def _prove_msms(g1, g2, ni, z_can, h_canon, pk):
+    """The five proving MSMs in two bucket pipelines: a, b1, h and l over
+    G1 as one `msm_sets` call (one sort, one Horner chain), b2 over G2.
+    Returns (G1 sums with batch (3 or 4,), the G2 sum)."""
+    jobs = [(z_can, pk.a_query), (z_can, pk.b_g1_query), (h_canon, pk.h_query)]
+    if z_can.shape[1] > ni:
+        jobs.append((z_can[:, ni:], pk.l_query))
+    return msm_sets(g1, jobs), msm(g2, z_can, pk.b_g2_query)
+
+
+class Laps:
+    """Stage wall-clock table, kept in `rows`. On a CUDA device each lap
+    synchronizes first, so a stage's time includes its kernels."""
+
+    def __init__(self, device) -> None:
+        self.cuda = torch.device(device).type == "cuda"
+        self.rows: list = []
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms = (now - self.t) * 1e3
+        self.rows.append((name, ms))
+        self.t = now
+
+
+# ---------------------------------------------------------------------------
+# the proof system
+# ---------------------------------------------------------------------------
+
+
+class Groth16:
+    """compile / prove / verify on one torch device ("cuda" runs the CUDA
+    kernels, "cpu" their plain versions)."""
+
+    def __init__(self, pairing: PairingSpec = BLS12_381, device="cpu"):
+        self.pairing = pairing
+        self.fr = pairing.g1.scalar
+        self.device = torch.device(device)
+        #: stage tables of the last compile and prove
+        self.laps: dict = {}
+
+    def context_compiler(self) -> R1CSCompiler:
+        return R1CSCompiler.for_contexts(self.fr)
+
+    def proof_compiler(self) -> R1CSCompiler:
+        return R1CSCompiler.for_proofs(self.fr)
+
+    # -- setup --------------------------------------------------------------
+
+    def prepare(self, cs: R1CS) -> PreparedCircuit:
+        """Sparse QAP matrices for `cs` (one O(nnz) host pass)."""
+        rows_a, rows_b, rows_c = _qap_matrices(cs)
+        log_n = _domain_log2(len(rows_a))
+        n = 1 << log_n
+        num_vars = cs.num_variables
+        mats = [SparseFieldMatrix.from_lincombs(self.fr, rows, n, num_vars)
+                for rows in (rows_a, rows_b, rows_c)]
+        return PreparedCircuit(
+            *mats, *(m.transpose() for m in mats),
+            log_n=log_n, num_vars=num_vars, num_instance_total=cs.num_instance_total,
+        )
+
+    def compile(self, cs: R1CS, rng) -> ProvingKey:
+        """Circuit-specific setup (toxic waste drawn from `rng`)."""
+        fr, p, dev = self.fr, self.fr.modulus, self.device
+        g1, g2 = self.pairing.g1, self.pairing.g2
+        alpha, beta, gamma, delta, tau = (rng.randrange(1, p) for _ in range(5))
+        laps = Laps(dev)
+        prepared = self.prepare(cs)
+        log_n = prepared.log_n
+        n = 1 << log_n
+        num_vars, ni = cs.num_variables, cs.num_instance_total
+        laps.lap("prepare_matrices")
+        lag = _lagrange_at(fr, log_n, tau)
+        laps.lap("lagrange")
+        gamma_inv = pow(gamma, -1, p)
+        delta_inv = pow(delta, -1, p)
+        z_delta = (pow(tau, n, p) - 1) % p * delta_inv % p
+
+        lag_m = limb.tensor(limb.pack_mont(fr, np.array(lag, dtype=object)), dev)
+        u_m = prepared.at.matvec(lag_m)
+        v_m = prepared.bt.matvec(lag_m)
+        w_m = prepared.ct.matvec(lag_m)
+        laps.lap("qap_evals")
+
+        def cm(x: int):  # Montgomery broadcast constant
+            return limb.tensor(limb.pack_mont(fr, x % p), dev).reshape(fr.n_limbs, 1)
+
+        abc_m = limb.add(
+            fr, limb.add(fr, limb.mont_mul(fr, u_m, cm(beta)), limb.mont_mul(fr, v_m, cm(alpha))),
+            w_m,
+        )
+        l_can = limb.from_mont(fr, limb.mont_mul(fr, abc_m[:, ni:], cm(delta_inv)))
+        gamma_abc = [int(x) for x in limb.unpack_mont(fr, limb.mont_mul(fr, abc_m[:, :ni], cm(gamma_inv)))]
+        u_can = limb.from_mont(fr, u_m)
+        v_can = limb.from_mont(fr, v_m)
+        h_can = limb.from_mont(fr, limb.geom_series_mont(fr, z_delta, tau, n - 1, dev))
+        laps.lap("scalar_vectors")
+
+        a_query, b_g1_query, b_g2_query, h_query, l_query = _setup_queries(
+            g1, g2, u_can, v_can, h_can, l_can
+        )
+        laps.lap("fixed_base_queries")
+
+        G1, G2 = refc.generator(g1), refc.generator(g2)
+        vk = VerifyingKey(
+            pairing=self.pairing,
+            alpha_g1=refc.scalar_mul(g1, alpha, G1),
+            beta_g2=refc.scalar_mul(g2, beta, G2),
+            gamma_g2=refc.scalar_mul(g2, gamma, G2),
+            delta_g2=refc.scalar_mul(g2, delta, G2),
+            gamma_abc_g1=_fixed_base_host(g1, gamma_abc),
+        )
+        pk = ProvingKey(
+            pairing=self.pairing, vk=vk,
+            beta_g1=refc.scalar_mul(g1, beta, G1),
+            delta_g1=refc.scalar_mul(g1, delta, G1),
+            a_query=a_query, b_g1_query=b_g1_query, b_g2_query=b_g2_query,
+            h_query=h_query, l_query=l_query,
+            domain_log2=log_n, num_instance_total=ni, prepared=prepared,
+        )
+        laps.lap("verifying_key")
+        self.laps["compile"] = laps.rows
+        return pk
+
+    # -- prove ---------------------------------------------------------------
+
+    def witness_calculator(self, cs: R1CS):
+        """Tape-replay witness generator for `cs` (native when built)."""
+        from ..eclair.witness import WitnessCalculator
+
+        return WitnessCalculator(cs)
+
+    def prove(self, pk: ProvingKey, cs: R1CS, rng, prepared: Optional[PreparedCircuit] = None) -> Proof:
+        z = cs.assignment()
+        return self._prove_z(pk, z, rng, prepared or pk.prepared or self.prepare(cs))
+
+    def prove_assigned(self, pk: ProvingKey, z, rng, prepared: Optional[PreparedCircuit] = None) -> Proof:
+        """Prove from a full assignment: the planar (n_limbs, num_vars)
+        canonical limb array of `WitnessCalculator.evaluate_limbs`, or a
+        sequence of ints. Needs `prepared` or a key from `compile`."""
+        prepared = prepared or pk.prepared
+        if prepared is None:
+            raise ValueError("prove_assigned needs the prepared matrices (Groth16.prepare)")
+        return self._prove_z(pk, z, rng, prepared)
+
+    def _prove_z(self, pk: ProvingKey, z, rng, prepared: PreparedCircuit) -> Proof:
+        fr, p = self.fr, self.fr.modulus
+        g1, g2 = self.pairing.g1, self.pairing.g2
+        dev = pk.device
+        laps = Laps(dev)
+        if not isinstance(z, np.ndarray):
+            z = limb.pack(fr, np.array(list(z), dtype=object))
+        num_vars = z.shape[1]
+        if prepared.num_vars != num_vars:
+            raise ValueError(f"assignment has {num_vars} variables, circuit {prepared.num_vars}")
+        ni = pk.num_instance_total
+        n = 1 << pk.domain_log2
+
+        z_can = limb.tensor(z, dev)
+        z_mont = limb.to_mont(fr, z_can)
+        laps.lap("pack_witness")
+        ua = prepared.a.matvec(z_mont)
+        va = prepared.b.matvec(z_mont)
+        wa = prepared.c.matvec(z_mont)
+        laps.lap("qap_matvec")
+
+        # one batched iNTT and coset NTT for u, v and w: (n_limbs, N, 3)
+        uc, vc, wc = nttmod.coset_ntt(fr, nttmod.intt(fr, torch.stack([ua, va, wa], dim=2))).unbind(2)
+        g = nttmod.GENERATORS[fr.name]
+        zg_inv = pow((pow(g, n, p) - 1) % p, -1, p)
+        zg = limb.tensor(limb.pack_mont(fr, zg_inv), dev).reshape(fr.n_limbs, 1)
+        hc = limb.mont_mul(fr, limb.sub(fr, limb.mont_mul(fr, uc, vc), wc), zg)
+        h_canon = limb.from_mont(fr, nttmod.coset_intt(fr, hc))[:, : n - 1]
+        laps.lap("h_poly_ntts")
+
+        r, s = rng.randrange(p), rng.randrange(p)
+
+        g1_sums, b2_sum = _prove_msms(g1, g2, ni, z_can, h_canon, pk)
+        laps.lap("msm_kernels")
+        g1_pts = jac.to_affine_ints(g1, g1_sums)
+        b2_msm = jac.to_affine_ints(g2, b2_sum)
+        a_msm, b1_msm, h_msm = g1_pts[:3]
+        l_msm = g1_pts[3] if len(g1_pts) > 3 else None
+        laps.lap("msm_readback")
+
+        # A = alpha + sum z_k u_k + r delta
+        A = refc.add(g1, refc.add(g1, pk.vk.alpha_g1, a_msm), refc.scalar_mul(g1, r, pk.delta_g1))
+        # B (G2) = beta + sum z_k v_k + s delta; B (G1) likewise for C
+        B2 = refc.add(g2, refc.add(g2, pk.vk.beta_g2, b2_msm), refc.scalar_mul(g2, s, pk.vk.delta_g2))
+        B1 = refc.add(g1, refc.add(g1, pk.beta_g1, b1_msm), refc.scalar_mul(g1, s, pk.delta_g1))
+        # C = L + H + s A + r B1 - r s delta
+        C = h_msm
+        if l_msm is not None:
+            C = refc.add(g1, C, l_msm)
+        C = refc.add(g1, C, refc.scalar_mul(g1, s, A))
+        C = refc.add(g1, C, refc.scalar_mul(g1, r, B1))
+        C = refc.add(g1, C, refc.neg(g1, refc.scalar_mul(g1, r * s % p, pk.delta_g1)))
+        laps.lap("finalize")
+        self.laps["prove"] = laps.rows
+        return Proof(a=A, b=B2, c=C)
+
+    # -- verify ---------------------------------------------------------------
+
+    def verify(self, vk: VerifyingKey, public_inputs: Sequence[int], proof: Proof) -> bool:
+        """e(A, B) == e(alpha, beta) e(Ic, gamma) e(C, delta)."""
+        p = self.fr.modulus
+        g1 = self.pairing.g1
+        inputs = [1] + [x % p for x in public_inputs]
+        if len(inputs) != len(vk.gamma_abc_g1):
+            return False
+        ic = None
+        for a_i, P in zip(inputs, vk.gamma_abc_g1):
+            ic = refc.add(g1, ic, refc.scalar_mul(g1, a_i, P))
+        return refpair.pairing_product_is_one(
+            self.pairing,
+            [
+                (refc.neg(g1, proof.a), proof.b),
+                (vk.alpha_g1, vk.beta_g2),
+                (ic, vk.gamma_g2),
+                (proof.c, vk.delta_g2),
+            ],
+        )

@@ -1,0 +1,154 @@
+"""Build and load the hand-written CUDA kernels (`openzl_tpu_torch/csrc`).
+
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
+shared library with a plain C interface, loaded with `ctypes`. The library
+lives under `build/openzl_tpu_torch/` at the repository root, named by a hash
+of the sources and flags, so an edited kernel rebuilds and an unchanged one
+loads at once. Nothing is built when this module is imported: the first
+kernel launch builds. A missing `nvcc` or a failed build raises; there is no
+fallback.
+
+C entry points take device pointers and the CUDA stream as `c_void_p` and
+return `cudaGetLastError()` after the launch; :func:`check` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "openzl_tpu_torch"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+@dataclasses.dataclass
+class KernelInfo:
+    """One hand-written kernel: where it lives, what it replaces, and how
+    many times a wrapper has launched it (a plain counter the smoke run
+    zeroes before driving the main path)."""
+
+    name: str
+    source: str
+    replaces: str
+    route: str = "cuda"
+    launches: int = 0
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libozl_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels if the hashed library is missing; returns its
+    path. Each `.cu` file compiles to an object in its own nvcc process
+    (in parallel), then one link. The `-Xptxas -v` report (registers,
+    spills) is kept beside the library as `<library>.log`."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report, failed = [], []
+    for obj, proc in procs:
+        text, _ = proc.communicate()
+        report.append(text)
+        if proc.returncode != 0:
+            failed.append(obj.name)
+    log = out.with_suffix(".log")
+    if not failed:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o, _ in procs)],
+            capture_output=True, text=True,
+        )
+        report.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append("link")
+    log.write_text("".join(report))
+    for obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}; see {log}:\n{''.join(report)[-4000:]}")
+    tmp.replace(out)
+    return out
+
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+_U32 = ctypes.c_uint32
+
+_SIGNATURES = {
+    # (out, a, b, N, b_limb_stride, b_elem_stride, n_limbs, p, n0, stream)
+    "ozl_mont_mul": [_VP, _VP, _VP, _I64, _I64, _I64, _I, _VP, _U32, _VP],
+    # (out, x, stage_tw, post_tw|0, M, lanes, n_limbs, p, n0, stream)
+    "ozl_small_ntt": [_VP, _VP, _VP, _VP, _I, _I64, _I, _VP, _U32, _VP],
+    # (mixed, ext, x1, y1, z1, x2, y2, z2, x3, y3, z3, N, n_limbs, p, n0,
+    #  beta, has_a, a_words, stream)
+    "ozl_ec_add": [_I, _I] + [_VP] * 9 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],
+    # (ext, x1, y1, z1, x3, y3, z3, N, n_limbs, p, n0, beta, has_a, a, stream)
+    "ozl_ec_dbl": [_I] + [_VP] * 6 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],
+}
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = handle
+    return _LIB
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

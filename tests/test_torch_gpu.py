@@ -1,0 +1,94 @@
+"""The hand-written CUDA kernels against their plain torch versions, on the
+card. Every test needs an NVIDIA GPU and skips without one.
+
+This file imports no JAX, so it also runs where JAX is not installed (the
+tests' conftest imports JAX, hence `--noconftest`). Run on the card:
+
+    python -m pytest --noconftest -o addopts="" -p no:cacheprovider \\
+        -m gpu tests/test_torch_gpu.py -q
+
+Inputs come from seeded `random.Random`; every comparison is exact
+(tolerance 0). `chip_smoke.py` repeats these checks at the main path's
+shapes."""
+
+import random
+
+import pytest
+import torch
+
+from openzl_tpu.curves.spec import BN254_G1, BN254_G2
+from openzl_tpu.fields.spec import BN254_FR
+from openzl_tpu.ref import curve as ref
+from openzl_tpu_torch.curves import jacobian as jac
+from openzl_tpu_torch.fields import limb
+from openzl_tpu_torch.ops import ec_kernel, msm, ntt, ntt_kernel
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+def _field(spec, n, seed, device=None):
+    rng = random.Random(seed)
+    p = spec.modulus
+    vals = [0, 1, p - 1, p - 2] + [rng.randrange(p) for _ in range(n - 4)]
+    return limb.tensor(limb.pack(spec, vals), device)
+
+
+def _points(curve, n, seed):
+    """Affine points P and Q with an identity on either side, and rows where
+    2P = Q and 2P = -Q (the EC test doubles P first, so that its Z != 1)."""
+    rng = random.Random(seed)
+    G = ref.generator(curve)
+    pts = [ref.scalar_mul(curve, rng.randrange(1, 1 << 64), G) for _ in range(n)]
+    qts = [ref.scalar_mul(curve, rng.randrange(1, 1 << 64), G) for _ in range(n)]
+    pts[0] = None
+    qts[1] = None
+    qts[2] = ref.add(curve, pts[2], pts[2])
+    qts[3] = ref.neg(curve, ref.add(curve, pts[3], pts[3]))
+    return pts, qts
+
+
+def test_k1_kernel_matches_plain(cuda):
+    spec = BN254_FR
+    a = _field(spec, 1000, 7, cuda)
+    b = torch.roll(a, 1, dims=1).contiguous()
+    assert torch.equal(ntt_kernel.mont_mul(spec, a, b), ntt_kernel.mont_mul_plain(spec, a, b))
+    s = b[:, 3:4].contiguous()
+    assert torch.equal(ntt_kernel.mont_scale(spec, a, s), ntt_kernel.mont_mul_plain(spec, a, s))
+
+
+def test_k2_kernel_and_ntt_match_cpu(cuda):
+    spec = BN254_FR
+    x = _field(spec, 1 << 12, 3)
+    assert torch.equal(ntt.coset_ntt(spec, x.to(cuda)).cpu(), ntt.coset_ntt(spec, x))
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
+def test_k3_k4_kernels_match_plain(cuda, curve):
+    pts, qts = _points(curve, 12, 5)
+    P = jac.double(curve, jac.from_affine_ints(curve, pts, cuda))
+    Q = jac.from_affine_ints(curve, qts, cuda)
+    want_aff = [ref.add(curve, ref.add(curve, a, a), b) for a, b in zip(pts, qts)]
+    assert jac.to_affine_ints(curve, jac.add(curve, P, Q)) == want_aff
+    for got, want in (
+        (ec_kernel.ec_add(curve, P, Q), ec_kernel.ec_add_plain(curve, P, Q, False)),
+        (ec_kernel.ec_add(curve, P, Q, True), ec_kernel.ec_add_plain(curve, P, Q, True)),
+        (ec_kernel.ec_dbl(curve, P), ec_kernel.ec_dbl_plain(curve, *P)),
+    ):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
+def test_msm_matches_cpu(cuda, curve):
+    pts, _ = _points(curve, 256, 13)
+    rng = random.Random(14)
+    scalars = limb.pack(curve.scalar, [rng.randrange(curve.scalar.modulus) for _ in pts])
+    cpu = msm.msm(curve, limb.tensor(scalars), jac.from_affine_ints(curve, pts))
+    gpu = msm.msm(curve, limb.tensor(scalars, cuda), jac.from_affine_ints(curve, pts, cuda))
+    assert jac.to_affine_ints(curve, gpu) == jac.to_affine_ints(curve, cpu)
