@@ -1,20 +1,26 @@
 """openzl_tpu_torch: the Groth16 prover of `openzl_tpu` on PyTorch and CUDA.
 
 A port of the JAX package `openzl_tpu` (which stays the reference) to
-PyTorch, with the prover's TPU kernels rewritten by hand in CUDA for the
-NVIDIA H100 (`sm_90a`). Module names follow the JAX package:
+PyTorch, with the TPU kernels rewritten by hand in CUDA for the NVIDIA
+H100 (`sm_90a`). Entry points run on `cuda` unless the caller passes
+`device="cpu"`, where every kernel runs its plain torch version. Module
+names follow the JAX package:
 
-  fields/        limb arithmetic (`limb`), Fq / Fq2 ops (`ext`)
+  fields/        limb arithmetic (`limb`), Fq / Fq2 ops (`ext`), specs
   ops/           K1/K2 (`ntt_kernel`), NTT, scans, sparse QAP matvec,
                  K3/K4 (`ec_kernel`), MSM
-  curves/        batched Jacobian points (`jacobian`)
+  curves/        batched Jacobian points (`jacobian`), curve specs
+  crypto/        Poseidon parameter generation and R1CS gadget (host)
   eclair/        R1CS constraint system, R1CS compiler, witness calculator
   proof_systems/ Groth16 compile / prove / verify
-  utils/build.py nvcc build and ctypes loading of `csrc/*.cu`
+  ref/           pure-Python oracles (fields, curves, pairing, Poseidon)
+  native.py      ctypes loader of the repository's `native/` C++ library
+  utils/         nvcc build and ctypes loading of `csrc/*.cu`, codec,
+                 profiler
 
-Nothing here imports JAX. Host-only modules of the reference that import no
-JAX (field and curve specs, `ref/` oracles, `native`, `utils.codec`, the
-Poseidon gadget) are imported from `openzl_tpu` directly.
+Nothing here imports JAX or the JAX package: the host-only modules the port
+needs (specs, oracles, codec, native loader, Poseidon parameter generation)
+are the port's own copies, under the same relative names.
 """
 
 __version__ = "0.1.0"

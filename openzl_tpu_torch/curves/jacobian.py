@@ -14,8 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from openzl_tpu.curves.spec import CurveSpec
-
+from .spec import CurveSpec
 from ..ops import ec_kernel
 from ..ops.ec_kernel import field_ops
 

@@ -4,18 +4,17 @@ h_{i+1} = Poseidon(h_0 .. : h_i, w_i) over `chain` links, with the final
 digest as the one public input (knowledge of the chain's preimages), as
 `tools/bench_groth16.py` builds it: BN254 Fr, width 3, 8 full and 55
 partial rounds. A link is 234 constraints. The gadget and the hash oracle
-are the reference's JAX-free modules (`openzl_tpu.crypto.poseidon.gadget`,
-`openzl_tpu.ref.poseidon`), driven by the port's `R1CSCompiler`.
+are the port's copies (`crypto.poseidon.gadget`, `ref.poseidon`), driven by
+the port's `R1CSCompiler`.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-from openzl_tpu.crypto.poseidon import gadget
-from openzl_tpu.fields.spec import FieldSpec
-from openzl_tpu.ref import poseidon as refposeidon
-
+from ..crypto.poseidon import gadget
+from ..fields.spec import FieldSpec
+from ..ref import poseidon as refposeidon
 from .compilers import R1CSCompiler
 from .r1cs import R1CS
 

@@ -3,8 +3,8 @@
 Carried from `openzl_tpu/eclair/compilers.py`: `FpVar` and `R1CSCompiler`,
 which are pure Python. The reference's `NativeCompiler` is not needed by the
 prover and its `JaxCompiler` waits for a torch counterpart (ROADMAP.md,
-modules to port, item 5). Gadgets of the reference that import no JAX
-(`openzl_tpu.crypto.poseidon.gadget`) run unchanged under this compiler.
+modules to port, item 5). The port's copy of the Poseidon gadget
+(`crypto.poseidon.gadget`) runs unchanged under this compiler.
 
 Constraint-count semantics mirror the arkworks R1CS compiler: add, sub,
 neg and scale are free; mul, square and inv cost one constraint; is_eq two;
@@ -17,8 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
-from openzl_tpu.fields.spec import FieldSpec
-
+from ..fields.spec import FieldSpec
 from .r1cs import R1CS, LinComb, SynthesisMode
 
 

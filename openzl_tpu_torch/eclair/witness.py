@@ -4,7 +4,7 @@ Carried from `openzl_tpu/eclair/witness.py` (pure Python, but its package
 imports JAX; see `r1cs.py`). The R1CS compiler records a hint tape while
 the circuit is built once; this module flattens the tape and replays it
 against fresh leaf values, in Python or through the shared native C++
-evaluator of `openzl_tpu.native` (`make -C native`).
+evaluator of `openzl_tpu_torch.native` (`make -C native`).
 
 Leaf witnesses are the `secret_witness` allocations the user made directly;
 every other witness column is derived by a tape op (mul / inv / iszero /
@@ -39,7 +39,7 @@ _OPS_BY_NAME = {
 def native_available() -> bool:
     """True when the shared evaluator `native/libozlfield.so` is built
     (`make -C native`) and loads."""
-    from openzl_tpu import native
+    from .. import native
 
     return native.available()
 
@@ -192,7 +192,7 @@ class WitnessCalculator:
         """Native replay returning (raw LE assignment bytes, stride) —
         avoids materializing Python ints when the consumer re-packs into
         limbs anyway (Groth16 prove path)."""
-        from openzl_tpu import native
+        from .. import native
 
         if self._native is None:
             self._native = native.pack_witness_tape(

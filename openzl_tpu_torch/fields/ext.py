@@ -21,8 +21,7 @@ from typing import Union
 import numpy as np
 import torch
 
-from openzl_tpu.fields.spec import FieldSpec
-
+from .spec import FieldSpec
 from . import limb
 
 

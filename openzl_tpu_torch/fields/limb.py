@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from openzl_tpu.fields.spec import LIMB_BITS, LIMB_MASK, FieldSpec
+from .spec import LIMB_BITS, LIMB_MASK, FieldSpec
 
 DTYPE = torch.int32
 _MASK = LIMB_MASK
@@ -61,7 +61,7 @@ def _limbs_to_ints(limbs: np.ndarray) -> np.ndarray:
 
 
 def _native():
-    from openzl_tpu import native
+    from .. import native
 
     return native if native.available() else None
 
@@ -80,7 +80,7 @@ def unpack(spec: FieldSpec, limbs) -> np.ndarray:
 
 def pack_mont(spec: FieldSpec, values) -> np.ndarray:
     """Python ints -> Montgomery-form limbs (host), through the native
-    converter of `openzl_tpu.native` when it is built."""
+    converter of `openzl_tpu_torch.native` when it is built."""
     arr = np.asarray(values, dtype=object)
     nat = _native()
     if nat is not None and arr.size:

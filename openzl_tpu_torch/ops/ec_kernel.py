@@ -19,8 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from openzl_tpu.curves.spec import CurveSpec
-
+from ..curves.spec import CurveSpec
 from ..fields.ext import fq2_ops, fq_ops
 from ..utils import build
 from .ntt_kernel import device_kind, word_consts

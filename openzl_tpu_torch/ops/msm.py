@@ -27,9 +27,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from openzl_tpu.curves.spec import CurveSpec
-from openzl_tpu.fields.spec import LIMB_BITS
-
+from ..curves.spec import CurveSpec
+from ..fields.spec import LIMB_BITS
 from ..curves import jacobian as jac
 from ..curves.jacobian import JPoint
 
@@ -187,7 +186,7 @@ def msm_multi(curve, scalars, points_list, window_bits=None, n_bits=None):
 def _fixed_base_table(curve: CurveSpec, c: int, n_bits: int, device: torch.device) -> JPoint:
     """T[w 2^c + d] = d 2^(c w) G, affine (Z in {0, 1}), batch
     (windows 2^c,). Built once on the host from the affine oracle."""
-    from openzl_tpu.ref import curve as refc
+    from ..ref import curve as refc
 
     windows = -(-n_bits // c)
     flat = []

@@ -22,8 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from openzl_tpu.fields.spec import FieldSpec
-
+from ..fields.spec import FieldSpec
 from ..fields import limb
 from . import ntt_kernel
 

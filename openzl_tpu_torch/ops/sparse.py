@@ -16,8 +16,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from openzl_tpu.fields.spec import FieldSpec
-
+from ..fields.spec import FieldSpec
 from ..fields import limb
 from . import ntt_kernel
 
@@ -65,10 +64,11 @@ class SparseFieldMatrix:
 
     @classmethod
     def from_reference(cls, m) -> "SparseFieldMatrix":
-        """From a reference `openzl_tpu.ops.sparse.SparseFieldMatrix`
-        through its COO numpy arrays. Its zero-coefficient padding entries
-        (row = n_rows) fall into the dump slot of `matvec`."""
-        return cls(m.spec, m.n_rows, m.n_cols, np.asarray(m.rows, np.int32),
+        """From a reference (JAX package) `SparseFieldMatrix` through its
+        COO numpy arrays and its field's name and modulus. Its
+        zero-coefficient padding entries (row = n_rows) fall into the dump
+        slot of `matvec`."""
+        return cls(FieldSpec(m.spec.name, m.spec.modulus), m.n_rows, m.n_cols, np.asarray(m.rows, np.int32),
                    np.asarray(m.cols, np.int32), np.asarray(m.vals, np.uint32))
 
     def transpose(self) -> "SparseFieldMatrix":

@@ -9,7 +9,7 @@ Port of the device branch of `openzl_tpu/proof_systems/groth16.py`:
     iNTTs, three coset NTTs, the pointwise (u v - w) / Z and a coset iNTT
     (K1, K2), then the four G1 MSMs in one bucket pipeline and the G2 MSM
     (K3, K4); proof assembly on the host;
-  * verify: the shared pairing check (`openzl_tpu.ref.pairing`, native
+  * verify: the pairing check (`openzl_tpu_torch.ref.pairing`, native
     engine when `native/libozlfield.so` is built).
 
 Randomness (toxic waste, r and s) comes from a Python `random.Random`
@@ -28,20 +28,19 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from openzl_tpu.fields.spec import FieldSpec
-from openzl_tpu.ref import curve as refc
-from openzl_tpu.ref import pairing as refpair
-from openzl_tpu.ref.pairing import BLS12_381, BN254, PairingSpec
-from openzl_tpu.utils import codec
-
 from ..curves import jacobian as jac
 from ..curves.jacobian import JPoint
 from ..eclair.compilers import R1CSCompiler
 from ..eclair.r1cs import R1CS, LinComb
 from ..fields import limb
+from ..fields.spec import FieldSpec
 from ..ops import ntt as nttmod
 from ..ops.msm import fixed_base_msm, msm, msm_sets
 from ..ops.sparse import SparseFieldMatrix
+from ..ref import curve as refc
+from ..ref import pairing as refpair
+from ..ref.pairing import BLS12_381, BN254, PairingSpec
+from ..utils import codec
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +86,9 @@ class VerifyingKey:
 
     @classmethod
     def from_reference(cls, vk) -> "VerifyingKey":
-        return cls(vk.pairing, vk.alpha_g1, vk.beta_g2, vk.gamma_g2, vk.delta_g2,
+        """From a reference (JAX package) VerifyingKey: its affine int
+        points, over the port's pairing of the same name."""
+        return cls(refpair.PAIRINGS[vk.pairing.name], vk.alpha_g1, vk.beta_g2, vk.gamma_g2, vk.delta_g2,
                    list(vk.gamma_abc_g1))
 
 
@@ -169,9 +170,9 @@ class ProvingKey:
         data: bytes,
         compressed: bool = False,
         validate: bool = True,
-        device=None,
+        device="cuda",
     ) -> "ProvingKey":
-        """Deserialize; the query tables land on `device` (CPU by default).
+        """Deserialize; the query tables land on `device`.
         `validate` checks subgroup membership of every point."""
         g1, g2 = pairing.g1, pairing.g2
         r = codec.Reader(data)
@@ -187,11 +188,12 @@ class ProvingKey:
         )
 
     @classmethod
-    def from_reference(cls, pk, device=None) -> "ProvingKey":
-        """From a reference `openzl_tpu` ProvingKey: device-form queries
+    def from_reference(cls, pk, device="cuda") -> "ProvingKey":
+        """From a reference (JAX package) ProvingKey: device-form queries
         through `np.asarray` of their limb arrays, host-form ones through
-        their affine int lists."""
-        g1, g2 = pk.pairing.g1, pk.pairing.g2
+        their affine int lists, over the port's pairing of the same name."""
+        pairing = refpair.PAIRINGS[pk.pairing.name]
+        g1, g2 = pairing.g1, pairing.g2
         queries = {}
         for k, curve in zip(_QUERIES, (g1, g1, g2, g1, g1)):
             q = getattr(pk, k)
@@ -201,7 +203,7 @@ class ProvingKey:
                 queries[k] = JPoint(*(limb.tensor(np.asarray(v), device) for v in q))
         prepared = PreparedCircuit.from_reference(pk.prepared) if pk.prepared is not None else None
         return cls(
-            pairing=pk.pairing, vk=VerifyingKey.from_reference(pk.vk),
+            pairing=pairing, vk=VerifyingKey.from_reference(pk.vk),
             beta_g1=pk.beta_g1, delta_g1=pk.delta_g1, **queries,
             domain_log2=pk.domain_log2, num_instance_total=pk.num_instance_total,
             prepared=prepared,
@@ -329,10 +331,10 @@ class Laps:
 
 
 class Groth16:
-    """compile / prove / verify on one torch device ("cuda" runs the CUDA
-    kernels, "cpu" their plain versions)."""
+    """compile / prove / verify on one torch device: "cuda" (the default)
+    runs the CUDA kernels, "cpu" their plain versions."""
 
-    def __init__(self, pairing: PairingSpec = BLS12_381, device="cpu"):
+    def __init__(self, pairing: PairingSpec = BLS12_381, device="cuda"):
         self.pairing = pairing
         self.fr = pairing.g1.scalar
         self.device = torch.device(device)

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain torch versions, on the
 card. Every test needs an NVIDIA GPU and skips without one.
 
-This file imports no JAX, so it also runs where JAX is not installed (the
-tests' conftest imports JAX, hence `--noconftest`). Run on the card:
+This file imports only the port (no JAX, no `openzl_tpu`), so it also
+runs where JAX is not installed (the tests' conftest imports JAX, hence
+`--noconftest`). Run on the card:
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \\
         -m gpu tests/test_torch_gpu.py -q
@@ -16,12 +17,12 @@ import random
 import pytest
 import torch
 
-from openzl_tpu.curves.spec import BN254_G1, BN254_G2
-from openzl_tpu.fields.spec import BN254_FR
-from openzl_tpu.ref import curve as ref
 from openzl_tpu_torch.curves import jacobian as jac
+from openzl_tpu_torch.curves.spec import BN254_G1, BN254_G2
 from openzl_tpu_torch.fields import limb
+from openzl_tpu_torch.fields.spec import BN254_FR
 from openzl_tpu_torch.ops import ec_kernel, msm, ntt, ntt_kernel
+from openzl_tpu_torch.ref import curve as ref
 
 pytestmark = pytest.mark.gpu
 
@@ -92,3 +93,4 @@ def test_msm_matches_cpu(cuda, curve):
     cpu = msm.msm(curve, limb.tensor(scalars), jac.from_affine_ints(curve, pts))
     gpu = msm.msm(curve, limb.tensor(scalars, cuda), jac.from_affine_ints(curve, pts, cuda))
     assert jac.to_affine_ints(curve, gpu) == jac.to_affine_ints(curve, cpu)
+

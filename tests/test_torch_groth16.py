@@ -20,7 +20,7 @@ from openzl_tpu.ref import pairing as refpair
 from openzl_tpu.ref import poseidon as refposeidon
 from openzl_tpu_torch.eclair import circuits
 from openzl_tpu_torch.fields import limb
-from openzl_tpu_torch.proof_systems import Groth16, PreparedCircuit, ProvingKey
+from openzl_tpu_torch.proof_systems import BN254, Groth16, PreparedCircuit, ProvingKey
 
 # xdist workers share the machine's cores: one torch thread each, since
 # torch's default of one thread per core oversubscribes them many times
@@ -44,7 +44,7 @@ def _build(g16, params, chain, witness, digest):
 @pytest.fixture(scope="module")
 def run():
     ref = RefGroth16(refpair.BN254, backend="host")
-    port = Groth16(refpair.BN254)
+    port = Groth16(BN254, "cpu")
     params = refposeidon.PoseidonParams.generate(port.fr, 3, 8, 55)
     rng = random.Random(WITNESS_SEED)
     witness = [rng.randrange(port.fr.modulus) for _ in range(2)]
@@ -107,7 +107,7 @@ def test_prepared_matvec_matches_reference_matrices(run):
 
 def test_proof_from_reference_key_is_byte_identical(run):
     port = run["port"]
-    pk = ProvingKey.from_reference(run["ref_pk"])
+    pk = ProvingKey.from_reference(run["ref_pk"], device="cpu")
     proof = port.prove(pk, run["cs"], random.Random(PROVE_SEED))
     assert proof.to_bytes(port.pairing) == run["ref_proof"]
     assert port.verify(pk.vk, [run["digest"]], proof)
@@ -117,7 +117,7 @@ def test_proof_from_reference_key_is_byte_identical(run):
 
 def test_proof_from_bytes_key_is_byte_identical(run):
     port, cs = run["port"], run["cs"]
-    pk = ProvingKey.from_bytes(port.pairing, run["ref_pk"].to_bytes(), validate=False)
+    pk = ProvingKey.from_bytes(port.pairing, run["ref_pk"].to_bytes(), validate=False, device="cpu")
     calc = port.witness_calculator(cs)
     z = calc.evaluate_limbs([run["digest"]], calc.leaf_values(cs))
     proof = port.prove_assigned(pk, z, random.Random(PROVE_SEED), prepared=port.prepare(cs))
