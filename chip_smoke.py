@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (`openzl_tpu_torch`) on one GPU.
 
-Drives the port's main path, the Groth16 prover, through the entry points a
-user calls, and checks every hand-written kernel on the way. Phases:
+Drives the port's two paths through the entry points a user calls, the
+Groth16 prover and Poseidon hashing with the Merkle tree, and checks every
+hand-written kernel on the way. Phases:
 
   1. device   the card's name and power limit; fails without CUDA
-  2. build    nvcc builds the kernels (K1-K4) and `make -C native` the
-              host library; prints the build seconds and register spills
+  2. build    nvcc builds the kernels (K1-K7) and `make -C native` the
+              host library; prints the build seconds and each kernel's
+              registers and spill stores (`-Xptxas -v`)
   3. kernels  each kernel against its plain torch version on the card,
               bit-exact, at the main path's shapes; prints both times
   4. roundtrip  port on CUDA against port on CPU, same seeds, 2 chain
@@ -18,10 +20,22 @@ user calls, and checks every hand-written kernel on the way. Phases:
               then one more request under torch.profiler (device busy
               share, device time by kernel, host launches and syncs;
               `openzl_tpu_torch.utils.profile`)
+  6. hash     K5, K6 and K7 against their plain versions at batch 2^16
+              (BN254 Fr, width 3, bit-exact) and K5 on the BLS12-381 Fr
+              golden vector of `tests/vectors/`; then, with the launch
+              counters zeroed before and read after, the slice: Poseidon,
+              optimized Poseidon and Poseidon2 throughput at batch 2^16
+              through `permute`, both hashes, the Merkle h20 bulk builds of
+              2^16 and 2^19 leaves (wall ms, peak device memory) and
+              `verify_batch` of 2^16 paths (all pass, a flipped leaf fails);
+              the 2^16-leaf root must equal a root built on the card through
+              the plain hash; then one more warm build under torch.profiler
+              and K5 on a single block (the latency of one state)
 
-Prints a JSON line of per-kernel results, then, as the last line,
-{"ok": true, "device": {...}}. Any failure exits non-zero with no result.
-Imports only the port (`openzl_tpu_torch`), never JAX.
+Prints a JSON line of per-kernel results (times, launches on their path,
+and the bound: the least time the card could take for the same work), then,
+as the last line, {"ok": true, "device": {...}}. Any failure exits non-zero
+with no result. Imports only the port (`openzl_tpu_torch`), never JAX.
 
 Usage: python3 chip_smoke.py [--chain 512] [--proofs 3]
 """
@@ -90,14 +104,17 @@ def phase_build():
     if not native_available():
         fail("native/libozlfield.so did not load")
     ptxas = path.with_suffix(".log").read_text()
-    spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", ptxas)]
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", ptxas)]
-    log(
-        f"[build] nvcc {t_nvcc:.1f} s, make -C native {t_native:.1f} s; "
-        f"{len(regs)} kernels, max {max(regs, default=0)} registers, "
-        f"{sum(1 for s in spills if s)} spilling (max {max(spills, default=0)} bytes spill stores); "
-        f"ptxas report {path.with_suffix('.log').relative_to(ROOT)}"
-    )
+    # per entry function: "Compiling entry function '<name>'", then its
+    # "N bytes spill stores" and "Used R registers" lines
+    entries = re.split(r"Compiling entry function '", ptxas)[1:]
+    log(f"[build] nvcc {t_nvcc:.1f} s, make -C native {t_native:.1f} s; {len(entries)} kernels; "
+        f"ptxas report {path.with_suffix('.log').relative_to(ROOT)}")
+    for entry in entries:
+        name = entry.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        log(f"[build]   {name}: {regs.group(1) if regs else '?'} registers, "
+            f"{spill.group(1) if spill else '?'} bytes spill stores")
 
 
 # ---------------------------------------------------------------------------
@@ -139,12 +156,28 @@ def _rand_field(spec, n, rng, device):
     return limb.tensor(limb.pack(spec, vals), device)
 
 
-def _check(name, results, got, exp, ms, plain_ms, shape):
+def _mont_words(n_limbs: int) -> int:
+    """32x32->64-bit word products of one Montgomery product: CIOS over NW
+    words does NW^2 for a b, NW^2 for m p and NW for the m's."""
+    nw = n_limbs // 2
+    return 2 * nw * nw + nw
+
+
+#: base-field Montgomery products of one point operation (csrc/ec.cuh, a = 0):
+#: G1 add 11 products + 5 squares, madd 7 + 4, dbl 2 + 5; over Fq2 a
+#: product is 3 base products and a square 2
+EC_PRODUCTS = {("add", 1): 16, ("madd", 1): 11, ("dbl", 1): 7,
+               ("add", 2): 43, ("madd", 2): 29, ("dbl", 2): 16}
+
+
+def _check(name, results, got, exp, ms, plain_ms, shape, work):
+    """Record one kernel comparison; `work` = (word products, bytes) the
+    call needs, each input read once and each output written once."""
     err = _max_err(got, exp)
     log(f"[kernels] {name} {shape}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     if err:
         fail(f"{name} disagrees with its plain version")
-    results.setdefault(name, []).append((err, ms, plain_ms))
+    results.setdefault(name, []).append((err, ms, plain_ms, work, shape))
 
 
 def _ec_inputs(curve, n, rng, device):
@@ -212,14 +245,16 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
         exp = ntt_kernel.mont_mul_plain(spec, a, b)
         ms = _time(lambda: ntt_kernel.mont_mul(spec, a, b), 50, dev)
         pms = _time(lambda: ntt_kernel.mont_mul_plain(spec, a, b), 3, dev)
-        _check("mont_mul", results, [got], [exp], ms, pms, f"{spec.name} mul (n={n})")
+        _check("mont_mul", results, [got], [exp], ms, pms, f"{spec.name} mul (n={n})",
+               (n * _mont_words(spec.n_limbs), 3 * n * spec.n_limbs * 4))
     s = _rand_field(BN254_FR, 4, rng, dev)[:, 3:4].contiguous()
     a = _rand_field(BN254_FR, n, rng, dev)
     got = ntt_kernel.mont_scale(BN254_FR, a, s)
     exp = ntt_kernel.mont_mul_plain(BN254_FR, a, s)
     ms = _time(lambda: ntt_kernel.mont_scale(BN254_FR, a, s), 50, dev)
     pms = _time(lambda: ntt_kernel.mont_mul_plain(BN254_FR, a, s), 3, dev)
-    _check("mont_mul", results, [got], [exp], ms, pms, f"bn254_fr scale (n={n})")
+    _check("mont_mul", results, [got], [exp], ms, pms, f"bn254_fr scale (n={n})",
+           (n * _mont_words(16), 2 * n * 16 * 4 + 16 * 4))
 
     # K2: every (M, lanes, post-twiddle) launch of the 2^log_n NTT plan
     node, _ = ntt._plan(BN254_FR, log_n, False, 1, dev)
@@ -234,7 +269,11 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
         ms = _time(lambda: ntt_kernel.small_ntt(BN254_FR, x, stage_tw, level_tw), 20, dev)
         pms = _time(lambda: ntt_kernel.small_ntt_plain(BN254_FR, x, stage_tw, level_tw), 2, dev)
         post = "post-twiddle" if level_tw is not None else "no post"
-        _check("small_ntt", results, [got], [exp], ms, pms, f"M={M} lanes={lanes} {post}")
+        stages = M.bit_length() - 1
+        products = lanes * (M // 2 * stages + (M if level_tw is not None else 0))
+        moved = (2 + (level_tw is not None)) * M * lanes * 16 * 4 + stages * M // 2 * 16 * 4
+        _check("small_ntt", results, [got], [exp], ms, pms, f"M={M} lanes={lanes} {post}",
+               (products * _mont_words(16), moved))
         nt, c, node = nt // M, c * M, inner
 
     # K3 / K4 over BN254 G1 and G2 at 2^log_m points
@@ -246,11 +285,16 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
             ("ec_add", "madd", lambda: ec_kernel.ec_add(curve, P, Qa, True), lambda: ec_kernel.ec_add_plain(curve, P, Qa, True)),
             ("ec_dbl", "dbl", lambda: ec_kernel.ec_dbl(curve, P), lambda: ec_kernel.ec_dbl_plain(curve, *P)),
         )
+        n_limbs, ext = curve.base.n_limbs, curve.ext
         for kname, op, kern, plain in cases:
             got, exp = kern(), plain()
             ms = _time(kern, 20, dev)
             pms = _time(plain, 2, dev)
-            _check(kname, results, list(got), list(exp), ms, pms, f"{curve.name} {op} (n={m})")
+            # rows 0-255 have P = Q: the add kernels also run the doubling there
+            products = m * EC_PRODUCTS[op, ext] + (min(256, m) * EC_PRODUCTS["dbl", ext] if op != "dbl" else 0)
+            coords = (6 + 3) if op != "dbl" else (3 + 3)
+            _check(kname, results, list(got), list(exp), ms, pms, f"{curve.name} {op} (n={m})",
+                   (products * _mont_words(n_limbs), coords * ext * n_limbs * m * 4))
     return results
 
 
@@ -285,7 +329,7 @@ def phase_roundtrip(chain: int = 2, device="cuda"):
         f"ProvingKey ({len(out[device][0])} B) and Proof bytes identical on {device} and cpu")
 
 
-def phase_slice(chain: int, proofs: int, kernels, device="cuda"):
+def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
     import torch
 
     from openzl_tpu_torch.eclair import circuits
@@ -312,7 +356,7 @@ def phase_slice(chain: int, proofs: int, kernels, device="cuda"):
         """One prove request: a fresh witness, then a proof with fresh r, s."""
         return g16.prove_assigned(pk, calc.evaluate_limbs([digest], witness), rng)
 
-    for k in kernels:
+    for k in all_kernels:
         k.launches = 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -350,6 +394,177 @@ def phase_slice(chain: int, proofs: int, kernels, device="cuda"):
     return launches, walls
 
 
+# ---------------------------------------------------------------------------
+# 6. hash: Poseidon / Poseidon2 and the Merkle tree
+# ---------------------------------------------------------------------------
+
+
+def _rand_states(spec, batch, rng, device):
+    """(n_limbs, 3, batch) Montgomery states: rows 0, 1 and p - 1 in every
+    element, then uniform values from `rng`."""
+    import numpy as np
+
+    from openzl_tpu_torch.fields import limb
+
+    p = spec.modulus
+    vals = np.array([[0, 1, p - 1] + [rng.randrange(p) for _ in range(batch - 3)] for _ in range(3)],
+                    dtype=object)
+    return limb.tensor(limb.pack_mont(spec, vals), device)
+
+
+def _plain_merkle_root(params, level):
+    """The Merkle root of the leaves `level` through the plain torch hash on
+    their device: the tree's level recursion with K5's plain version."""
+    import torch
+
+    from openzl_tpu_torch.fields import limb
+    from openzl_tpu_torch.ops import poseidon_kernel
+
+    perm = params.poseidon
+    tag = limb.tensor(perm.domain_tag_mont(), level.device).reshape(-1, 1)
+    for _ in range(params.height - 1):
+        if level.shape[1] % 2:
+            level = torch.cat([level, torch.zeros_like(level[:, :1])], dim=1)
+        lhs, rhs = level[:, 0::2], level[:, 1::2]
+        state = torch.stack([tag.expand_as(lhs), lhs, rhs], dim=1).contiguous()
+        level = poseidon_kernel.permute_plain(perm, state)[:, 0]
+    return level[:, 0]
+
+
+def _wall(fn, device):
+    """(result, wall ms) of fn, ended by a device sync."""
+    import torch
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _peak(device) -> str:
+    import torch
+
+    return f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB" if device.type == "cuda" else "not measured"
+
+
+def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, log_full: int = 19,
+               reps: int = 20, seed: int = 3):
+    """Phase 6. Returns (kernel results, launches of the slice's kernels)."""
+    import numpy as np
+    import torch
+
+    from openzl_tpu_torch.crypto.merkle import path as mpath
+    from openzl_tpu_torch.crypto.merkle.tree import MerkleParameters, MerkleTree
+    from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
+    from openzl_tpu_torch.crypto.poseidon2 import Poseidon2
+    from openzl_tpu_torch.fields import limb
+    from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
+    from openzl_tpu_torch.ops import poseidon2_kernel, poseidon_kernel
+    from openzl_tpu_torch.utils import profile as prof
+
+    dev = torch.device(device)
+    rng = random.Random(seed)
+    results = {}
+    B = 1 << log_b
+    perm, perm2 = Poseidon.create(BN254_FR, 2, device=dev), Poseidon2.create(BN254_FR, 2, device=dev)
+    x = _rand_states(BN254_FR, B, rng, dev)
+    w, rf, rp = perm.width, perm.full_rounds, perm.partial_rounds
+    # Montgomery products per state: x^5 is 3, a dense width-w matrix w^2
+    products = {
+        "poseidon_permute": rf * (3 * w + w * w) + rp * (3 + w * w),
+        "poseidon_permute_opt": rf * (3 * w + w * w) + rp * (3 + w + w - 1),
+        "poseidon2_permute": perm2.full_rounds * 3 * w + perm2.partial_rounds * 3,
+    }
+    cases = (
+        ("poseidon_permute", lambda: poseidon_kernel.permute(perm, x),
+         lambda: poseidon_kernel.permute_plain(perm, x)),
+        ("poseidon_permute_opt", lambda: poseidon_kernel.permute_optimized(perm, x),
+         lambda: poseidon_kernel.permute_optimized_plain(perm, x)),
+        ("poseidon2_permute", lambda: poseidon2_kernel.permute(perm2, x),
+         lambda: poseidon2_kernel.poseidon2_permute_plain(perm2, x)),
+    )
+    for name, kern, plain in cases:
+        got, exp = kern(), plain()
+        ms = _time(kern, reps, dev)
+        pms = _time(plain, 1, dev)
+        _check(name, results, [got], [exp], ms, pms, f"bn254_fr width 3 (B={B}, {products[name]} products)",
+               (B * products[name] * _mont_words(16), 2 * x.numel() * 4))
+
+    vec = json.loads((ROOT / "tests" / "vectors" / "poseidon_perm_width3_bls381.json").read_text())
+    gstate = limb.tensor(limb.pack_mont(BLS12_381_FR, [[int(v)] for v in vec["input"]]), dev)
+    gout = poseidon_kernel.permute(Poseidon.create(BLS12_381_FR, 2, device=dev), gstate)
+    if [int(v) for v in limb.unpack_mont(BLS12_381_FR, gout)[:, 0]] != [int(v) for v in vec["output"]]:
+        fail("K5 does not reproduce the BLS12-381 Fr golden vector")
+    log("[hash] K5 reproduces the BLS12-381 Fr width-3 golden vector (tests/vectors)")
+
+    # the slice through its entry points, launch counters zeroed before
+    params = MerkleParameters(BN254_FR, height)
+    leaves = _rand_field(BN254_FR, 1 << log_b, rng, dev)
+    full = _rand_field(BN254_FR, 1 << log_full, rng, dev)
+    for k in all_kernels:
+        k.launches = 0
+    for label, fn in (("poseidon", lambda: perm.permute(x)), ("poseidon optimized", lambda: perm.permute_optimized(x)),
+                      ("poseidon2", lambda: perm2.permute(x))):
+        ms = _time(fn, reps, dev)
+        log(f"[hash] {label} permute, BN254 Fr width 3: {ms:.4f} ms per batch of {B}, {B / ms * 1e3:.1f} perms/s")
+    for label, h in (("poseidon", perm), ("poseidon2", perm2)):
+        digest, ms = _wall(lambda: h.hash(x[:, 1:]), dev)
+        if tuple(digest.shape) != (BN254_FR.n_limbs, B):
+            fail(f"{label} hash gave shape {tuple(digest.shape)}")
+        log(f"[hash] {label} hash of {B} pairs: {ms:.3f} ms wall")
+    # the first build also moves the tree's Poseidon constants to the card
+    for run in ("first", "warm", "warm"):
+        tree, ms = _wall(lambda: MerkleTree.from_leaf_digests(params, leaves, device=dev), dev)
+        log(f"[merkle] h{height} bulk build of {leaves.shape[1]} leaves ({run}): {ms:.3f} ms wall, "
+            f"peak {_peak(dev)}")
+    for run in ("warm", "warm"):
+        big, ms = _wall(lambda: MerkleTree.from_leaf_digests(params, full, device=dev), dev)
+        log(f"[merkle] h{height} bulk build of {full.shape[1]} leaves ({run}): {ms:.3f} ms wall, "
+            f"peak {_peak(dev)}")
+    if not bool(limb.eq(big.levels[-1], big.root()[:, None]).all()) or big.levels[-1].shape[1] != 1:
+        fail("full-capacity build has no single root")
+    idx = np.arange(leaves.shape[1])
+    for _ in range(2):
+        (sib, inner), ms_paths = _wall(lambda: tree.path_arrays(idx), dev)
+        ok, ms = _wall(lambda: mpath.verify_batch(params, tree.root(), leaves, sib, inner, idx), dev)
+        log(f"[merkle] verify_batch of {len(idx)} paths: {ms:.3f} ms wall (gathering the paths "
+            f"{ms_paths:.3f} ms), {int(ok.sum())} pass")
+    if not bool(ok.all()):
+        fail("verify_batch rejected a valid path")
+    flipped = leaves.clone()
+    flipped[0, 12345 % len(idx)] ^= 1
+    bad = mpath.verify_batch(params, tree.root(), flipped, sib, inner, idx)
+    if bad.tolist() != [i != 12345 % len(idx) for i in idx]:
+        fail("verify_batch accepted a flipped leaf (or rejected another path)")
+    log("[merkle] a flipped leaf fails, every other path passes")
+    launches = {k.name: k.launches for k in all_kernels}
+    log(f"[hash] launches during the slice: {launches}")
+
+    plain_root, ms = _wall(lambda: _plain_merkle_root(params, leaves), dev)
+    if not torch.equal(plain_root.cpu(), tree.root().cpu()):
+        fail("the h20 root differs between the kernel build and the plain-hash build")
+    log(f"[merkle] h{height} root of {leaves.shape[1]} leaves equals the plain-hash root on {dev.type} "
+        f"(plain build {ms:.1f} ms)")
+
+    # where a warm build's time goes, and the floor of its narrow levels:
+    # K5 on one block of 128 states is one thread's 63 serial rounds
+    report = prof.profile(lambda: MerkleTree.from_leaf_digests(params, leaves, device=dev))
+    log(f"[profile] one more warm h{height} bulk build of {leaves.shape[1]} leaves")
+    for line in report.lines(8):
+        log(f"[profile] {line}")
+    if dev.type == "cuda" and not report.device_events:
+        fail("the profiler recorded no device activity")
+    one_block = x[:, :, :128].contiguous()
+    ms = _time(lambda: poseidon_kernel.permute(perm, one_block), reps, dev)
+    log(f"[hash] K5 on 128 states (one block, one SM): {ms:.4f} ms")
+    return results, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--chain", type=int, default=512, help="Poseidon chain links of the slice")
@@ -364,28 +579,74 @@ def main() -> None:
 
     import torch
 
-    from openzl_tpu_torch.ops import ec_kernel, ntt_kernel
+    from openzl_tpu_torch.ops import ec_kernel, ntt_kernel, poseidon2_kernel, poseidon_kernel
 
-    kernels = [ntt_kernel.K1, ntt_kernel.K2, ec_kernel.K3, ec_kernel.K4]
+    groth16_kernels = [ntt_kernel.K1, ntt_kernel.K2, ec_kernel.K3, ec_kernel.K4]
+    hash_kernels = [poseidon_kernel.K5, poseidon_kernel.K6, poseidon2_kernel.K7]
+    kernels = groth16_kernels + hash_kernels
     results = phase_kernels()
     phase_roundtrip()
-    launches, _ = phase_slice(args.chain, args.proofs, kernels)
+    launches, _ = phase_slice(args.chain, args.proofs, kernels, groth16_kernels)
+    hash_results, hash_launches = phase_hash(kernels)
+    results.update(hash_results)
+    launches = {**launches, **{k.name: hash_launches[k.name] for k in hash_kernels}}
+    missing = [k.name for k in hash_kernels if hash_launches[k.name] == 0]
+    if missing:
+        fail(f"kernels never launched on the hash slice: {missing}")
 
+    # bound: the larger of the word products over the card's 32-bit integer
+    # multiply rate (64 multiply issues per clock per SM, two per 32x32->64
+    # product, at the highest SM clock) and the bytes over 3.35 TB/s (H100
+    # SXM HBM3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    products_per_s = 64 * sms * clock_mhz * 1e6 / 2
+    log(f"[bound] {sms} SMs at {clock_mhz:.0f} MHz: {products_per_s:.4g} word products/s; 3.35e12 B/s")
+
+    def bound(work):
+        t_ops, t_bytes = work[0] / products_per_s * 1e3, work[1] / 3.35e12 * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    for name, runs in results.items():
+        for _, ms, _, work, shape in runs:
+            b_ms, b_by = bound(work)
+            log(f"[bound] {name} {shape}: bound {b_ms:.4f} ms ({b_by}), kernel {ms:.4f} ms, "
+                f"{b_ms / ms:.1%} of the bound")
+    # the same reckoning for the two TPU kernels still to port, at the
+    # shapes the reference would give them: one radix-2 stage at the
+    # 512-link domain (2^17 points: 2^16 products; u, t, w read, lo, hi
+    # written) and a G1 mixed-add fold over 16 sorted columns of 2^16 lanes
+    # (the columns read, every prefix and the totals written)
+    for label, work in (
+        ("butterfly (row 4), one stage of 2^17 BN254 Fr points",
+         (2**16 * _mont_words(16), 5 * 2**16 * 16 * 4)),
+        ("fold_madd (row 8), 16 columns x 2^16 lanes of BN254 G1",
+         (16 * 2**16 * EC_PRODUCTS["madd", 1] * _mont_words(16), (6 * 16 + 3) * 2**16 * 16 * 4)),
+    ):
+        b_ms, b_by = bound(work)
+        log(f"[bound] {label}: {b_ms:.4f} ms ({b_by})")
     rows = []
     for k in kernels:
         runs = results[k.name]
+        b_ms, b_by = bound(runs[0][3])
         rows.append({
             "name": k.name, "route": k.route, "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name],
             "max_abs_err": max(r[0] for r in runs),
             "ms": runs[0][1], "plain_ms": runs[0][2],
+            "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call computes a Montgomery product, an NTT
+            # over a prime field, a group law or a Poseidon permutation
+            "library_ms": None,
         })
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
-
 
 if __name__ == "__main__":
     main()

@@ -1,4 +1,5 @@
-"""openzl_tpu_torch: the Groth16 prover of `openzl_tpu` on PyTorch and CUDA.
+"""openzl_tpu_torch: `openzl_tpu` on PyTorch and CUDA (Groth16 prover, Poseidon
+hashing and the Merkle tree).
 
 A port of the JAX package `openzl_tpu` (which stays the reference) to
 PyTorch, with the TPU kernels rewritten by hand in CUDA for the NVIDIA
@@ -8,9 +9,11 @@ names follow the JAX package:
 
   fields/        limb arithmetic (`limb`), Fq / Fq2 ops (`ext`), specs
   ops/           K1/K2 (`ntt_kernel`), NTT, scans, sparse QAP matvec,
-                 K3/K4 (`ec_kernel`), MSM
+                 K3/K4 (`ec_kernel`), MSM, K5/K6 (`poseidon_kernel`),
+                 K7 (`poseidon2_kernel`)
   curves/        batched Jacobian points (`jacobian`), curve specs
-  crypto/        Poseidon parameter generation and R1CS gadget (host)
+  crypto/        Poseidon and Poseidon2 permutations and hashes, the
+                 Merkle tree and batched path verification
   eclair/        R1CS constraint system, R1CS compiler, witness calculator
   proof_systems/ Groth16 compile / prove / verify
   ref/           pure-Python oracles (fields, curves, pairing, Poseidon)

@@ -126,6 +126,11 @@ _SIGNATURES = {
     "ozl_ec_add": [_I, _I] + [_VP] * 9 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],
     # (ext, x1, y1, z1, x3, y3, z3, N, n_limbs, p, n0, beta, has_a, a, stream)
     "ozl_ec_dbl": [_I] + [_VP] * 6 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],
+    # (out, state, consts, B, width, full_rounds, partial_rounds, n_limbs,
+    #  p, n0, stream)
+    "ozl_poseidon_permute": [_VP] * 3 + [_I64, _I, _I, _I, _I, _VP, _U32, _VP],
+    "ozl_poseidon_permute_opt": [_VP] * 3 + [_I64, _I, _I, _I, _I, _VP, _U32, _VP],
+    "ozl_poseidon2_permute": [_VP] * 3 + [_I64, _I, _I, _I, _I, _VP, _U32, _VP],
 }
 
 

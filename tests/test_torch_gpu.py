@@ -17,11 +17,14 @@ import random
 import pytest
 import torch
 
+from openzl_tpu_torch.crypto.merkle.tree import MerkleParameters, MerkleTree
+from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
+from openzl_tpu_torch.crypto.poseidon2 import Poseidon2
 from openzl_tpu_torch.curves import jacobian as jac
 from openzl_tpu_torch.curves.spec import BN254_G1, BN254_G2
 from openzl_tpu_torch.fields import limb
-from openzl_tpu_torch.fields.spec import BN254_FR
-from openzl_tpu_torch.ops import ec_kernel, msm, ntt, ntt_kernel
+from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
+from openzl_tpu_torch.ops import ec_kernel, msm, ntt, ntt_kernel, poseidon2_kernel, poseidon_kernel
 from openzl_tpu_torch.ref import curve as ref
 
 pytestmark = pytest.mark.gpu
@@ -94,3 +97,28 @@ def test_msm_matches_cpu(cuda, curve):
     gpu = msm.msm(curve, limb.tensor(scalars, cuda), jac.from_affine_ints(curve, pts, cuda))
     assert jac.to_affine_ints(curve, gpu) == jac.to_affine_ints(curve, cpu)
 
+
+def _states(spec, n, seed, device):
+    """(n_limbs, 3, n) random Montgomery-form states with rows 0, 1, p - 1."""
+    x = _field(spec, 3 * n, seed).reshape(spec.n_limbs, 3, n)
+    return limb.to_mont(spec, x).contiguous().to(device)
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BLS12_381_FR], ids=lambda s: s.name)
+def test_k5_k6_k7_kernels_match_plain(cuda, spec):
+    x = _states(spec, 1000, 17, cuda)
+    perm, perm2 = Poseidon.create(spec, 2, device=cuda), Poseidon2.create(spec, 2, device=cuda)
+    want = poseidon_kernel.permute_plain(perm, x)
+    assert torch.equal(poseidon_kernel.permute(perm, x), want)
+    assert torch.equal(poseidon_kernel.permute_optimized(perm, x), want)
+    assert torch.equal(poseidon2_kernel.permute(perm2, x), poseidon2_kernel.poseidon2_permute_plain(perm2, x))
+    assert torch.equal(perm.permute(x.cpu()), want.cpu())
+
+
+def test_merkle_tree_on_cuda_matches_cpu(cuda):
+    params = MerkleParameters(BN254_FR, 8)
+    leaves = limb.to_mont(BN254_FR, _field(BN254_FR, 77, 19))
+    gpu = MerkleTree.from_leaf_digests(params, leaves.to(cuda))
+    cpu = MerkleTree.from_leaf_digests(params, leaves, device="cpu")
+    assert gpu.device.type == "cuda"
+    assert all(torch.equal(g.cpu(), c) for g, c in zip(gpu.levels, cpu.levels))

@@ -1,7 +1,8 @@
 """The port stands alone: in a fresh interpreter whose import system refuses
 `jax`, `jaxlib` and the JAX package `openzl_tpu`, import every module of
-`openzl_tpu_torch`, run the 1-link Groth16 slice on the CPU, and check that
-none of the blocked modules was loaded."""
+`openzl_tpu_torch`, run the 1-link Groth16 slice, a Poseidon2 hash and a
+2^3-leaf Merkle build with path checks on the CPU, and check that none of
+the blocked modules was loaded."""
 
 import os
 import pathlib
@@ -44,6 +45,26 @@ SCRIPT = textwrap.dedent(
     assert g16.verify(pk.vk, [digest], proof)
     assert not g16.verify(pk.vk, [digest + 1], proof)
 
+    import numpy as np
+    from openzl_tpu_torch.crypto.merkle import path as mpath
+    from openzl_tpu_torch.crypto.merkle.tree import MerkleParameters, MerkleTree
+    from openzl_tpu_torch.crypto.poseidon2 import Poseidon2
+    from openzl_tpu_torch.fields import limb
+    from openzl_tpu_torch.fields.spec import BN254_FR
+
+    p2 = Poseidon2.create(BN254_FR, 2)
+    pair = limb.tensor(limb.pack_mont(BN254_FR, [[1], [2]]))
+    assert p2.hash(pair).shape == (BN254_FR.n_limbs, 1)
+    params = MerkleParameters(BN254_FR, 4)
+    leaves = limb.pack_mont(BN254_FR, list(range(1, 9)))
+    tree = MerkleTree.from_leaf_digests(params, leaves, device="cpu")
+    paths = [tree.path(i) for i in range(8)]
+    ok = mpath.verify_batch(
+        params, limb.tensor(tree.root()), limb.tensor(leaves),
+        limb.tensor(np.stack([q.sibling_digest for q in paths], 1)),
+        limb.tensor(np.stack([q.inner_path for q in paths], 2)), np.arange(8),
+    )
+    assert bool(ok.all())
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
