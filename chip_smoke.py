@@ -29,8 +29,9 @@ hand-written kernel on the way. Phases:
               2^16 and 2^19 leaves (wall ms, peak device memory) and
               `verify_batch` of 2^16 paths (all pass, a flipped leaf fails);
               the 2^16-leaf root must equal a root built on the card through
-              the plain hash; then one more warm build under torch.profiler
-              and K5 on a single block (the latency of one state)
+              the plain hash; then one more warm build under torch.profiler,
+              K5 on a single block (the latency of one state) and the device
+              time of each level of two more warm builds (CUDA events)
 
 Prints a JSON line of per-kernel results (times, launches on their path,
 and the bound: the least time the card could take for the same work), then,
@@ -156,18 +157,22 @@ def _rand_field(spec, n, rng, device):
     return limb.tensor(limb.pack(spec, vals), device)
 
 
-def _mont_words(n_limbs: int) -> int:
-    """32x32->64-bit word products of one Montgomery product: CIOS over NW
-    words does NW^2 for a b, NW^2 for m p and NW for the m's."""
+def _mont_words(n_limbs: int, products: int, squares: int = 0) -> float:
+    """32x32->64-bit word products of `products` Montgomery products and
+    `squares` Montgomery squares over NW = n_limbs / 2 words (CIOS): a b
+    takes NW^2, a a NW (NW + 1) / 2 (each cross term once, doubled by a
+    shift), the reduction m p NW^2, and each of its NW factors m = t0 n'
+    mod 2^32 is a low half only (one multiply issue): half a word product."""
     nw = n_limbs // 2
-    return 2 * nw * nw + nw
+    reduce = nw * nw + nw / 2
+    return products * (nw * nw + reduce) + squares * (nw * (nw + 1) / 2 + reduce)
 
 
-#: base-field Montgomery products of one point operation (csrc/ec.cuh, a = 0):
-#: G1 add 11 products + 5 squares, madd 7 + 4, dbl 2 + 5; over Fq2 a
-#: product is 3 base products and a square 2
-EC_PRODUCTS = {("add", 1): 16, ("madd", 1): 11, ("dbl", 1): 7,
-               ("add", 2): 43, ("madd", 2): 29, ("dbl", 2): 16}
+#: (base-field Montgomery products, squares) of one point operation
+#: (csrc/ec.cuh, a = 0): G1 add 11 + 5, madd 7 + 4, dbl 2 + 5; over Fq2 a
+#: product is 3 base products and a square 2 (no base square)
+EC_PRODUCTS = {("add", 1): (11, 5), ("madd", 1): (7, 4), ("dbl", 1): (2, 5),
+               ("add", 2): (43, 0), ("madd", 2): (29, 0), ("dbl", 2): (16, 0)}
 
 
 def _check(name, results, got, exp, ms, plain_ms, shape, work):
@@ -246,7 +251,7 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
         ms = _time(lambda: ntt_kernel.mont_mul(spec, a, b), 50, dev)
         pms = _time(lambda: ntt_kernel.mont_mul_plain(spec, a, b), 3, dev)
         _check("mont_mul", results, [got], [exp], ms, pms, f"{spec.name} mul (n={n})",
-               (n * _mont_words(spec.n_limbs), 3 * n * spec.n_limbs * 4))
+               (_mont_words(spec.n_limbs, n), 3 * n * spec.n_limbs * 4))
     s = _rand_field(BN254_FR, 4, rng, dev)[:, 3:4].contiguous()
     a = _rand_field(BN254_FR, n, rng, dev)
     got = ntt_kernel.mont_scale(BN254_FR, a, s)
@@ -254,7 +259,7 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
     ms = _time(lambda: ntt_kernel.mont_scale(BN254_FR, a, s), 50, dev)
     pms = _time(lambda: ntt_kernel.mont_mul_plain(BN254_FR, a, s), 3, dev)
     _check("mont_mul", results, [got], [exp], ms, pms, f"bn254_fr scale (n={n})",
-           (n * _mont_words(16), 2 * n * 16 * 4 + 16 * 4))
+           (_mont_words(16, n), 2 * n * 16 * 4 + 16 * 4))
 
     # K2: every (M, lanes, post-twiddle) launch of the 2^log_n NTT plan
     node, _ = ntt._plan(BN254_FR, log_n, False, 1, dev)
@@ -273,7 +278,7 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
         products = lanes * (M // 2 * stages + (M if level_tw is not None else 0))
         moved = (2 + (level_tw is not None)) * M * lanes * 16 * 4 + stages * M // 2 * 16 * 4
         _check("small_ntt", results, [got], [exp], ms, pms, f"M={M} lanes={lanes} {post}",
-               (products * _mont_words(16), moved))
+               (_mont_words(16, products), moved))
         nt, c, node = nt // M, c * M, inner
 
     # K3 / K4 over BN254 G1 and G2 at 2^log_m points
@@ -291,10 +296,12 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
             ms = _time(kern, 20, dev)
             pms = _time(plain, 2, dev)
             # rows 0-255 have P = Q: the add kernels also run the doubling there
-            products = m * EC_PRODUCTS[op, ext] + (min(256, m) * EC_PRODUCTS["dbl", ext] if op != "dbl" else 0)
+            prod, sqr = EC_PRODUCTS[op, ext]
+            dprod, dsqr = EC_PRODUCTS["dbl", ext] if op != "dbl" else (0, 0)
+            words = _mont_words(n_limbs, m * prod + min(256, m) * dprod, m * sqr + min(256, m) * dsqr)
             coords = (6 + 3) if op != "dbl" else (3 + 3)
             _check(kname, results, list(got), list(exp), ms, pms, f"{curve.name} {op} (n={m})",
-                   (products * _mont_words(n_limbs), coords * ext * n_limbs * m * 4))
+                   (words, coords * ext * n_limbs * m * 4))
     return results
 
 
@@ -431,6 +438,38 @@ def _plain_merkle_root(params, level):
     return level[:, 0]
 
 
+def _level_ms(params, leaves, device):
+    """[(states, ms)] of each level's hash in one bulk build, as
+    `MerkleTree.from_leaf_digests` runs it: CUDA events recorded between the
+    levels' hashes and read after one sync at the end (so a level's time
+    also holds any wait for the host's next launch); the host clock on the
+    CPU."""
+    import torch
+
+    from openzl_tpu_torch.crypto.merkle.tree import hash_level
+
+    cuda = device.type == "cuda"
+
+    def mark():
+        if not cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    if cuda:
+        torch.cuda.synchronize()
+    current, states, marks = leaves, [], [mark()]
+    for _ in range(params.height - 1):
+        states.append((current.shape[1] + 1) // 2)
+        current = hash_level(params, current)
+        marks.append(mark())
+    if cuda:
+        torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) if cuda else (b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return list(zip(states, ms))
+
+
 def _wall(fn, device):
     """(result, wall ms) of fn, ended by a device sync."""
     import torch
@@ -474,11 +513,13 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
     perm, perm2 = Poseidon.create(BN254_FR, 2, device=dev), Poseidon2.create(BN254_FR, 2, device=dev)
     x = _rand_states(BN254_FR, B, rng, dev)
     w, rf, rp = perm.width, perm.full_rounds, perm.partial_rounds
-    # Montgomery products per state: x^5 is 3, a dense width-w matrix w^2
+    # (Montgomery products, squares) per state: x^5 is 2 squares and a
+    # product, a dense width-w matrix w^2 products, a sparse one 2w - 1
+    sboxes, sboxes2 = rf * w + rp, perm2.full_rounds * w + perm2.partial_rounds
     products = {
-        "poseidon_permute": rf * (3 * w + w * w) + rp * (3 + w * w),
-        "poseidon_permute_opt": rf * (3 * w + w * w) + rp * (3 + w + w - 1),
-        "poseidon2_permute": perm2.full_rounds * 3 * w + perm2.partial_rounds * 3,
+        "poseidon_permute": (sboxes + rf * w * w + rp * w * w, 2 * sboxes),
+        "poseidon_permute_opt": (sboxes + rf * w * w + rp * (2 * w - 1), 2 * sboxes),
+        "poseidon2_permute": (sboxes2, 2 * sboxes2),
     }
     cases = (
         ("poseidon_permute", lambda: poseidon_kernel.permute(perm, x),
@@ -492,8 +533,10 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
         got, exp = kern(), plain()
         ms = _time(kern, reps, dev)
         pms = _time(plain, 1, dev)
-        _check(name, results, [got], [exp], ms, pms, f"bn254_fr width 3 (B={B}, {products[name]} products)",
-               (B * products[name] * _mont_words(16), 2 * x.numel() * 4))
+        prod, sqr = products[name]
+        _check(name, results, [got], [exp], ms, pms,
+               f"bn254_fr width 3 (B={B}, {prod} products + {sqr} squares per state)",
+               (_mont_words(16, B * prod, B * sqr), 2 * x.numel() * 4))
 
     vec = json.loads((ROOT / "tests" / "vectors" / "poseidon_perm_width3_bls381.json").read_text())
     gstate = limb.tensor(limb.pack_mont(BLS12_381_FR, [[int(v)] for v in vec["input"]]), dev)
@@ -562,6 +605,18 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
     one_block = x[:, :, :128].contiguous()
     ms = _time(lambda: poseidon_kernel.permute(perm, one_block), reps, dev)
     log(f"[hash] K5 on 128 states (one block, one SM): {ms:.4f} ms")
+    # each level's device time in warm builds; a level is narrow when its
+    # states fill less than one 128-thread block per SM
+    narrow = 128 * (torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 1)
+    for _ in range(2):
+        levels = _level_ms(params, leaves, dev)
+        total = sum(ms for _, ms in levels)
+        thin = [ms for states, ms in levels if states < narrow]
+        log(f"[merkle] per-level ms of a warm h{height} build of {leaves.shape[1]} leaves (states:ms): "
+            + " ".join(f"{states}:{ms:.4f}" for states, ms in levels))
+        log(f"[merkle] levels sum {total:.3f} ms; the {len(thin)} levels under {narrow} states "
+            f"{sum(thin):.3f} ms ({sum(thin) / total:.1%}); the other {len(levels) - len(thin)} "
+            f"{total - sum(thin):.3f} ms")
     return results, launches
 
 
@@ -622,9 +677,9 @@ def main() -> None:
     # (the columns read, every prefix and the totals written)
     for label, work in (
         ("butterfly (row 4), one stage of 2^17 BN254 Fr points",
-         (2**16 * _mont_words(16), 5 * 2**16 * 16 * 4)),
+         (_mont_words(16, 2**16), 5 * 2**16 * 16 * 4)),
         ("fold_madd (row 8), 16 columns x 2^16 lanes of BN254 G1",
-         (16 * 2**16 * EC_PRODUCTS["madd", 1] * _mont_words(16), (6 * 16 + 3) * 2**16 * 16 * 4)),
+         (_mont_words(16, *(16 * 2**16 * c for c in EC_PRODUCTS["madd", 1])), (6 * 16 + 3) * 2**16 * 16 * 4)),
     ):
         b_ms, b_by = bound(work)
         log(f"[bound] {label}: {b_ms:.4f} ms ({b_by})")

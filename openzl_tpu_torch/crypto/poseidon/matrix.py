@@ -36,19 +36,6 @@ def is_square(m: Matrix) -> bool:
     return all(len(row) == len(m) for row in m)
 
 
-def is_identity(m: Matrix) -> bool:
-    return is_square(m) and all(
-        v == (1 if i == j else 0) for i, row in enumerate(m) for j, v in enumerate(row)
-    )
-
-
-def is_symmetric(m: Matrix) -> bool:
-    n = len(m)
-    return is_square(m) and all(
-        m[i][j] == m[j][i] for i in range(n) for j in range(n)
-    )
-
-
 def transpose(m: Matrix) -> Matrix:
     return [list(col) for col in zip(*m)]
 
@@ -58,12 +45,6 @@ def matmul(p: int, a: Matrix, b: Matrix) -> Matrix:
     assert len(a[0]) == len(b), "inner dimensions must match"
     bt = transpose(b)
     return [[sum(x * y for x, y in zip(row, col)) % p for col in bt] for row in a]
-
-
-def mul_col_vec(p: int, m: Matrix, v: Sequence[int]) -> List[int]:
-    """m @ v mod p (v as a column vector on the right)."""
-    assert len(m[0]) == len(v)
-    return [sum(x * y for x, y in zip(row, v)) % p for row in m]
 
 
 def mul_row_vec_at_left(p: int, m: Matrix, v: Sequence[int]) -> List[int]:
@@ -76,10 +57,6 @@ def mul_row_vec_at_left(p: int, m: Matrix, v: Sequence[int]) -> List[int]:
     return [
         sum(v[i] * m[i][j] for i in range(len(v))) % p for j in range(len(m[0]))
     ]
-
-
-def mul_by_scalar(p: int, m: Matrix, s: int) -> Matrix:
-    return [[x * s % p for x in row] for row in m]
 
 
 def vec_add(p: int, a: Sequence[int], b: Sequence[int]) -> List[int]:
@@ -114,10 +91,6 @@ def inverse(p: int, m: Matrix) -> Optional[Matrix]:
                 f = aug[r][col] % p
                 aug[r] = [(x - f * y) % p for x, y in zip(aug[r], aug[col])]
     return [row[n:] for row in aug]
-
-
-def is_invertible(p: int, m: Matrix) -> bool:
-    return is_square(m) and inverse(p, m) is not None
 
 
 def upper_triangular(p: int, m: Matrix) -> Optional[Matrix]:

@@ -27,7 +27,6 @@ from __future__ import annotations
 import dataclasses
 from typing import List
 
-from ...fields.spec import FieldSpec
 from . import matrix
 from .matrix import Matrix, SparseMatrix
 
@@ -81,13 +80,6 @@ def derive_mds_matrices(p: int, m: Matrix) -> MdsMatrices:
     m_prime = _make_prime(m)
     m_double_prime = _make_double_prime(p, m, m_hat_inv)
     return MdsMatrices(m, m_inv, m_hat, m_hat_inv, m_prime, m_double_prime)
-
-
-def mds_matrices(spec: FieldSpec, width: int) -> MdsMatrices:
-    """Derive from the standard Cauchy MDS for this field/width."""
-    from . import param_gen
-
-    return derive_mds_matrices(spec.modulus, param_gen.generate_mds(spec, width))
 
 
 def factor_to_sparse_matrices(

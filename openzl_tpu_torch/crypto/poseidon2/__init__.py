@@ -14,17 +14,16 @@ internal (partial) rounds (add a constant to element 0, S-box element 0,
 M_I). Matrices (paper sections 5.2-5.3): t=2 M_E = circ(2,1); t=3
 M_E = circ(2,1,1); t=4k M_E = circ(2 M4, M4, ...); M_I = ones + diag(mu)
 with the smallest small-integer mu that passes the invariant-subspace
-check. The matrix search and the Python-int oracle below are host Python,
-copied from the reference. Round constants come from the Grain LFSR with
-the classic Poseidon seeding; external rounds take `width` constants each,
-internal rounds one.
+check. The matrix search is host Python, copied from the reference. Round
+constants come from the Grain LFSR with the classic Poseidon seeding;
+external rounds take `width` constants each, internal rounds one.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Sequence
+from typing import List
 
 import numpy as np
 import torch
@@ -39,7 +38,6 @@ __all__ = [
     "Poseidon2",
     "external_matrix",
     "internal_matrix",
-    "permute_ints",
 ]
 
 
@@ -237,50 +235,6 @@ def internal_matrix(p: int, width: int) -> tuple:
         if _internal_secure(p, m, width):
             return tuple(diag)
     raise ValueError(f"no secure small internal diagonal found for t={width}")
-
-
-def _internal_dense(diag: Sequence[int], width: int) -> List[List[int]]:
-    m = [[1] * width for _ in range(width)]
-    for i in range(width):
-        m[i][i] = 1 + diag[i]
-    return m
-
-
-# ---------------------------------------------------------------------------
-# pure-int oracle
-# ---------------------------------------------------------------------------
-
-
-def permute_ints(
-    spec: FieldSpec,
-    width: int,
-    full_rounds: int,
-    partial_rounds: int,
-    ext_keys: Sequence[Sequence[int]],
-    int_keys: Sequence[int],
-    state: Sequence[int],
-) -> List[int]:
-    """Python-int Poseidon2 oracle (test reference for the jnp/Pallas paths)."""
-    p = spec.modulus
-    me = external_matrix(width)
-    mi = _internal_dense(internal_matrix(p, width), width)
-    half = full_rounds // 2
-
-    def mul(m, v):
-        return [sum(m[i][j] * v[j] for j in range(width)) % p for i in range(width)]
-
-    st = [x % p for x in state]
-    st = mul(me, st)
-    for r in range(half):
-        st = [(x + k) % p for x, k in zip(st, ext_keys[r])]
-        st = mul(me, [pow(x, 5, p) for x in st])
-    for r in range(partial_rounds):
-        st[0] = pow((st[0] + int_keys[r]) % p, 5, p)
-        st = mul(mi, st)
-    for r in range(half, full_rounds):
-        st = [(x + k) % p for x, k in zip(st, ext_keys[r])]
-        st = mul(me, [pow(x, 5, p) for x in st])
-    return st
 
 
 # ---------------------------------------------------------------------------

@@ -13,18 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple, Union
 
-from ..fields.spec import (
-    BLS12_377_FQ,
-    BLS12_377_FR,
-    BLS12_381_FQ,
-    BLS12_381_FR,
-    BN254_FQ,
-    BN254_FR,
-    BW6_761_FQ,
-    PALLAS_FP,
-    VESTA_FP,
-    FieldSpec,
-)
+from ..fields.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR, FieldSpec
 
 Coord = Union[int, Tuple[int, int]]
 
@@ -44,7 +33,7 @@ class CurveSpec:
     ext: int = 1
     cofactor: int = 1
     #: Fq2 non-residue (u^2 = nr2) for ext=2 coordinates; -1 for the
-    #: BN254/BLS12-381 towers, -5 for BLS12-377 (arkworks fq2.rs configs)
+    #: BN254/BLS12-381 towers (arkworks fq2.rs configs)
     nr2: int = -1
 
     def is_on_curve_int(self, x: int, y: int) -> bool:
@@ -114,213 +103,3 @@ BN254_G2 = CurveSpec(
     ),
     ext=2,
 )
-
-#: BLS12-377 G1 (arkworks ark-bls12-377 g1 config; y^2 = x^3 + 1).
-#: p/r derive from the BLS12 seed x = 0x8508C00000000001 (r = x^4 - x^2 + 1,
-#: p = (x-1)^2 r / 3 + x); generator verified on-curve with order r.
-BLS12_377_G1 = CurveSpec(
-    name="bls12_377_g1",
-    base=BLS12_377_FQ,
-    scalar=BLS12_377_FR,
-    a=0,
-    b=1,
-    gen_x=81937999373150964239938255573465948239988671502647976594219695644855304257327692006745978603320413799295628339695,
-    gen_y=241266749859715473739788878240585681733927191168601896383759122102112907357779751001206799952863815012735208165030,
-    cofactor=0x170B5D44300000000000000000000000,  # (x-1)^2 / 3
-)
-
-#: BLS12-377 G2 over Fq2 with u^2 = -5 (D-twist: y^2 = x^3 + 1/u, i.e.
-#: b' = (0, -1/5 mod p)); generator verified on the twist with order r.
-BLS12_377_G2 = CurveSpec(
-    name="bls12_377_g2",
-    base=BLS12_377_FQ,
-    scalar=BLS12_377_FR,
-    a=0,
-    b=(
-        0,
-        155198655607781456406391640216936120121836107652948796323930557600032281009004493664981332883744016074664192874906,
-    ),
-    gen_x=(
-        233578398248691099356572568220835526895379068987715365179118596935057653620464273615301663571204657964920925606294,
-        140913150380207355837477652521042157274541796891053068589147167627541651775299824604154852141315666357241556069118,
-    ),
-    gen_y=(
-        63160294768292073209381361943935198908131692476676907196754037919244929611450776219210369229519898517858833747423,
-        149157405641012693445398062341192467754805999074082136895788947234480009303640899064710353187729182149407503257491,
-    ),
-    ext=2,
-    nr2=-5,
-)
-
-#: BW6-761 G1: the outer curve of the BLS12-377 2-chain (reference curve
-#: matrix `bw6_761`, plugins/arkworks/Cargo.toml ark-bw6-761). Its SCALAR
-#: field is BLS12-377's BASE field, so a BW6 circuit can verify BLS12-377
-#: pairings natively (one-layer proof composition). E: y^2 = x^3 - 1 over
-#: the 761-bit Fq (fields/spec.py BW6_761_FQ derivation note). Embedding
-#: degree 6; G2 is over Fq itself (sextic M-twist y^2 = x^3 + 4). The
-#: generators are DERIVED, not copied: the smallest-x curve point with the
-#: lexicographically smaller y, cleared by the cofactor (x0 = 2 for G1,
-#: x0 = 1 for G2); subgroup order r verified in tests/test_pairing_bw6.py.
-BW6_761_G1 = CurveSpec(
-    name="bw6_761_g1",
-    base=BW6_761_FQ,
-    scalar=BLS12_377_FQ,
-    a=0,
-    b=BW6_761_FQ.modulus - 1,
-    gen_x=5121082781502305659180673370797932802982723165543122975335209418297923345190975559367024470794567213188867624617939698818627134048004915564891369096213721202693630090148097888923493708182442885908076346607300083583163982163789167,
-    gen_y=3936891438836912583780051937508657570812555345221986954460153541952284123191322673907692687918062549220672207508016306900511821136915723707181225276750353973961376292016478674329987421847947883311993206004548631860683957877121757,
-    cofactor=0xAD1972339049CE762C77D5AC34CB12EFC856A0853C9DB94CC61C554757551C0C832BA4061000003B3DE580000000007C,
-)
-
-#: BW6-761 G2: the sextic twist E': y^2 = x^3 + 4 over Fq (ext=1 — no
-#: field extension, unlike the k=12 curves' Fq2 twists).
-BW6_761_G2 = CurveSpec(
-    name="bw6_761_g2",
-    base=BW6_761_FQ,
-    scalar=BLS12_377_FQ,
-    a=0,
-    b=4,
-    gen_x=4299495046121976197967899669570453663523609133273326781652351086315825538613647196868186765217397067654540962955975840176693419657193486845273767814170238104346390446211356851381676719718477415944688400098442139983341339355564981,
-    gen_y=5390068907621955088169558704058566111636841949933812064258391788701969884935470780815806205108266591280868872340793447961301446566465351736303970166703756567269434202182284388197563290670801062112376259336491499915806321277334517,
-    cofactor=0xAD1972339049CE762C77D5AC34CB12EFC856A0853C9DB94CC61C554757551C0C832BA4061000003B3DE5800000000075,
-)
-
-#: Pasta cycle (reference curve matrix `pallas`/`vesta` features): a 2-cycle
-#: of prime-order a=0 curves — each curve's base field is the other's scalar
-#: field, so recursion-style circuits can alternate curves. No pairing
-#: (plain group ops + MSM only), generator (-1, 2) on both.
-PALLAS = CurveSpec(
-    name="pallas",
-    base=PALLAS_FP,
-    scalar=VESTA_FP,
-    a=0,
-    b=5,
-    gen_x=PALLAS_FP.modulus - 1,
-    gen_y=2,
-)
-
-VESTA = CurveSpec(
-    name="vesta",
-    base=VESTA_FP,
-    scalar=PALLAS_FP,
-    a=0,
-    b=5,
-    gen_x=VESTA_FP.modulus - 1,
-    gen_y=2,
-)
-
-# ---------------------------------------------------------------------------
-# a != 0 short-Weierstrass support (the MNT-family curve SHAPE).
-#
-# The reference ships MNT4/6-{298,753} and CP6-782 (plugins/arkworks/
-# Cargo.toml:60-67, 113-140), all with a != 0; their search-product
-# parameters cannot be re-derived in this zero-egress environment
-# (PARITY.md). The generic-a group law itself is first-class here
-# (curves/jacobian.py double, ops/ec_kernel.py `_k_ec_double` with the
-# Montgomery `a` operand, ref/curve.py host oracle), validated on NIST
-# P-256 — a real production a = -3 curve whose parameters are universal
-# public constants (FIPS 186-4) — so the remaining MNT gap is parameters
-# pending, not an architectural limitation.
-# ---------------------------------------------------------------------------
-
-_P256_P = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
-SECP256R1_FP = FieldSpec(name="secp256r1_fp", modulus=_P256_P)
-SECP256R1_FR = FieldSpec(
-    name="secp256r1_fr",
-    modulus=0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551,
-)
-
-#: NIST P-256 / secp256r1 (FIPS 186-4 D.1.2.3): y^2 = x^3 - 3x + b,
-#: prime order (cofactor 1). Generator on-curve + order checked in
-#: tests/test_curve_matrix.py.
-SECP256R1 = CurveSpec(
-    name="secp256r1",
-    base=SECP256R1_FP,
-    scalar=SECP256R1_FR,
-    a=_P256_P - 3,
-    b=0x5AC635D8AA3A93E7B3EBBD55769886BC651D06B0CC53B0F63BCE3C3E27D2604B,
-    gen_x=0x6B17D1F2E12C4247F8BCE6E563A440F277037D812DEB33A0F4A13945D898C296,
-    gen_y=0x4FE342E2FE1A7F9B8EE7EB4A7C0F9E162BCE33576B315ECECBB6406837BF51F5,
-)
-
-REGISTRY = {
-    c.name: c
-    for c in (
-        BLS12_381_G1,
-        BLS12_381_G2,
-        BN254_G1,
-        BN254_G2,
-        BLS12_377_G1,
-        BLS12_377_G2,
-        BW6_761_G1,
-        BW6_761_G2,
-        PALLAS,
-        VESTA,
-        SECP256R1,
-    )
-}
-
-
-def get_curve(name: str) -> CurveSpec:
-    return REGISTRY[name]
-
-
-def toy_curve_a() -> CurveSpec:
-    """An a != 0 sibling of `toy_curve` (y^2 = x^3 + 5x + 7 over the same
-    31-bit field): drives the generic-a group-law paths (jacobian double,
-    kernels, MSM pipeline) with fast compiles. NOT cryptographically
-    meaningful."""
-    import functools
-
-    @functools.lru_cache(maxsize=None)
-    def build():
-        p = (1 << 31) - 1
-        field = FieldSpec(name="toy_fp32", modulus=p)
-        a = 5
-        x = 2
-        while True:
-            rhs = (x * x * x + a * x + 7) % p
-            y = pow(rhs, (p + 1) // 4, p)
-            if y * y % p == rhs:
-                break
-            x += 1
-        return CurveSpec(
-            name="toy_g1_a", base=field, scalar=field, a=a, b=7,
-            gen_x=x, gen_y=y,
-        )
-
-    return build()
-
-
-def toy_curve() -> CurveSpec:
-    """A 2-limb short-Weierstrass curve for compile-bound test paths.
-
-    XLA:CPU compiles of the 24-limb production EC graphs take minutes per
-    executable on small hosts; this 32-bit curve (p = 2^32 - 5, y^2 = x^3 +
-    7) drives the IDENTICAL jac/msm/shard_map code with ~16x smaller graphs,
-    so multichip dryruns and fast-suite collective tests stay tractable.
-    NOT cryptographically meaningful; scalars must stay below the (unknown)
-    group order — keep them tiny.
-    """
-    import functools
-
-    @functools.lru_cache(maxsize=None)
-    def build():
-        # 2^31 - 1 (Mersenne): p % 4 == 3 so sqrt = pow((p+1)/4), and the
-        # top 16-bit limb keeps the headroom the lazy limb scheme assumes
-        # (a full-width top limb overflows carries out of the array)
-        p = (1 << 31) - 1
-        field = FieldSpec(name="toy_fp32", modulus=p)
-        x = 2
-        while True:
-            rhs = (x * x * x + 7) % p
-            y = pow(rhs, (p + 1) // 4, p)
-            if y * y % p == rhs:
-                break
-            x += 1
-        return CurveSpec(
-            name="toy_g1", base=field, scalar=field, a=0, b=7,
-            gen_x=x, gen_y=y,
-        )
-
-    return build()

@@ -132,63 +132,3 @@ BLS12_381_FQ = FieldSpec(
     "bls12_381_fq",
     0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB,
 )
-
-#: BLS12-377 scalar field; reference: arkworks `bls12_377::Fr`
-#: (r = x^4 - x^2 + 1, x = 0x8508C00000000001; two-adicity 47).
-BLS12_377_FR = FieldSpec(
-    "bls12_377_fr",
-    0x12AB655E9A2CA55660B44D1E5C37B00159AA76FED00000010A11800000000001,
-)
-
-#: BLS12-377 base field; reference: arkworks `bls12_377::Fq`
-#: (p = (x-1)^2 r / 3 + x; 377 bits, two-adicity 46).
-BLS12_377_FQ = FieldSpec(
-    "bls12_377_fq",
-    0x01AE3A4617C510EAC63B05C06CA1493B1A22D9F300F5138F1EF3622FBA094800170B5D44300000008508C00000000001,
-)
-
-#: BW6-761 base field; reference curve-matrix row `bw6_761`
-#: (plugins/arkworks/Cargo.toml ark-bw6-761). 761 bits (48 limbs). The
-#: modulus is NOT copied from the crate (unavailable here): it is re-derived
-#: from the BLS12-377 seed via the published Brezing-Weng construction
-#: (El Housni-Guillevic 2020, "one layer proof composition"): with
-#: t0 = x^5 - 3x^4 + 3x^3 - x + 3, y0 = (t0-2) sqrt(-1/3) mod r,
-#: t = t0 + 13 r, y = y0 + 9 r (ht = 13, hy = 9), q = (t^2 + 3 y^2)/4 —
-#: verified prime, 761-bit, with r | #E(Fq) for E: y^2 = x^3 - 1
-#: (tests/test_pairing_bw6.py re-runs the whole derivation).
-BW6_761_FQ = FieldSpec(
-    "bw6_761_fq",
-    0x122E824FB83CE0AD187C94004FAFF3EB926186A81D14688528275EF8087BE41707BA638E584E91903CEBAFF25B423048689C8ED12F9FD9071DCD3DC73EBFF2E98A116C25667A8F8160CF8AEEAF0A437E6913E6870000082F49D00000000008B,
-)
-
-#: Pasta cycle (mina/halo2): Pallas base field = Vesta scalar field and vice
-#: versa. Reference curve matrix rows `pallas`/`vesta`
-#: (plugins/arkworks/Cargo.toml curve features). Two-adicity 32 both.
-PALLAS_FP = FieldSpec(
-    "pallas_fp",
-    0x40000000000000000000000000000000224698FC094CF91B992D30ED00000001,
-)
-
-VESTA_FP = FieldSpec(
-    "vesta_fp",
-    0x40000000000000000000000000000000224698FC0994A8DD8C46EB2100000001,
-)
-
-REGISTRY = {
-    spec.name: spec
-    for spec in (
-        BN254_FR,
-        BN254_FQ,
-        BLS12_381_FR,
-        BLS12_381_FQ,
-        BLS12_377_FR,
-        BLS12_377_FQ,
-        BW6_761_FQ,
-        PALLAS_FP,
-        VESTA_FP,
-    )
-}
-
-
-def get_field(name: str) -> FieldSpec:
-    return REGISTRY[name]

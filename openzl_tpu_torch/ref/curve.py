@@ -128,8 +128,3 @@ def msm(curve: CurveSpec, scalars, points) -> Affine:
     for k, P in zip(scalars, points):
         acc = add(curve, acc, scalar_mul(curve, k, P))
     return acc
-
-
-def random_point(curve: CurveSpec, rng) -> Affine:
-    """Uniform-ish point: random scalar times the generator."""
-    return scalar_mul(curve, rng.randrange(1, curve.scalar.modulus), generator(curve))

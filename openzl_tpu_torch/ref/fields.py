@@ -69,17 +69,6 @@ def f2_is_zero(a: Fp2) -> bool:
     return a[0] == 0 and a[1] == 0
 
 
-def f2_pow(p: int, a: Fp2, e: int, beta: int = -1) -> Fp2:
-    acc: Fp2 = (1, 0)
-    base = a
-    while e:
-        if e & 1:
-            acc = f2_mul(p, acc, base, beta)
-        base = f2_mul(p, base, base, beta)
-        e >>= 1
-    return acc
-
-
 # ---------------------------------------------------------------------------
 # Fp6 over Fp2 (v^3 = xi)
 # ---------------------------------------------------------------------------
@@ -227,13 +216,3 @@ def f12_pow(p: int, xi: Fp2, a: Fp12, e: int, beta: int = -1) -> Fp12:
         base = f12_mul(p, xi, base, base, beta)
         e >>= 1
     return acc
-
-
-def f12_eq(a: Fp12, b: Fp12) -> bool:
-    return a == b
-
-
-# Frobenius on Fp2: (c0, c1) -> (c0, -c1) = conjugation. Valid for ANY
-# non-residue beta: u^p = u * beta^((p-1)/2) = -u.
-def f2_frobenius(p: int, a: Fp2, power: int) -> Fp2:
-    return a if power % 2 == 0 else f2_conj(p, a)

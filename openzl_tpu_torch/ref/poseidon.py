@@ -64,101 +64,6 @@ def permute(params: PoseidonParams, state: Sequence[int]) -> List[int]:
     return state
 
 
-@dataclasses.dataclass(frozen=True)
-class OptimizedPoseidonParams:
-    """Preprocessed parameters for the optimized permutation.
-
-    Derived from the same naive parameters (so the permutation output is
-    bit-identical); partial rounds cost 2*width-1 multiplications instead of
-    width^2. Reference: openzl-crypto/src/poseidon/{mds.rs,preprocessing.rs}.
-    """
-
-    base: PoseidonParams
-    compressed_keys: tuple  # width * full_rounds + partial_rounds
-    pre_sparse: tuple  # flat row-major width x width
-    sparse_w_hat: tuple  # (partial_rounds, width) first columns
-    sparse_v_rest: tuple  # (partial_rounds, width - 1) first rows sans [0]
-
-    @classmethod
-    def derive(cls, params: PoseidonParams) -> "OptimizedPoseidonParams":
-        from ..crypto.poseidon import mds as mds_mod
-        from ..crypto.poseidon import preprocessing
-
-        p = params.spec.modulus
-        w = params.width
-        m = [list(params.mds[i * w : (i + 1) * w]) for i in range(w)]
-        matrices = mds_mod.derive_mds_matrices(p, m)
-        keys = preprocessing.compress_round_constants(
-            p, w, params.full_rounds, params.partial_rounds,
-            params.round_keys, matrices,
-        )
-        pre_sparse, sparse = mds_mod.factor_to_sparse_matrices(
-            p, m, params.partial_rounds
-        )
-        return cls(
-            params,
-            tuple(keys),
-            tuple(x for row in pre_sparse for x in row),
-            tuple(tuple(s.w_hat) for s in sparse),
-            tuple(tuple(s.v_rest) for s in sparse),
-        )
-
-
-def permute_optimized(
-    opt: OptimizedPoseidonParams, state: Sequence[int]
-) -> List[int]:
-    """Optimized permutation; bit-identical to :func:`permute`.
-
-    Constants are added post-S-box (single constant in partial rounds);
-    partial-round linear layers are the sparse factors. All matrix products
-    use the row-vector-at-left convention of the derivation (the dense MDS
-    is symmetric, so the naive path is unaffected by the convention).
-    """
-    params = opt.base
-    p = params.spec.modulus
-    w = params.width
-    half = params.full_rounds // 2
-    keys = opt.compressed_keys
-    state = [x % p for x in state]
-    assert len(state) == w
-
-    def row_at_left(flat, v):
-        return [
-            sum(v[i] * flat[i * w + j] for i in range(w)) % p for j in range(w)
-        ]
-
-    ofs = 0
-    state = [(x + keys[ofs + i]) % p for i, x in enumerate(state)]
-    ofs += w
-    for r in range(half):
-        state = [
-            (pow(x, 5, p) + keys[ofs + i]) % p for i, x in enumerate(state)
-        ]
-        ofs += w
-        state = row_at_left(
-            opt.pre_sparse if r == half - 1 else params.mds, state
-        )
-    for i in range(params.partial_rounds):
-        state[0] = (pow(state[0], 5, p) + keys[ofs]) % p
-        ofs += 1
-        w_hat, v_rest = opt.sparse_w_hat[i], opt.sparse_v_rest[i]
-        out0 = sum(state[j] * w_hat[j] for j in range(w)) % p
-        state = [out0] + [
-            (state[j] + state[0] * v_rest[j - 1]) % p for j in range(1, w)
-        ]
-    for r in range(half):
-        if r < half - 1:
-            state = [
-                (pow(x, 5, p) + keys[ofs + i]) % p for i, x in enumerate(state)
-            ]
-            ofs += w
-        else:
-            state = [pow(x, 5, p) for x in state]
-        state = row_at_left(params.mds, state)
-    assert ofs == len(keys)
-    return state
-
-
 def hash_untruncated(params: PoseidonParams, inputs: Sequence[int]) -> List[int]:
     assert len(inputs) == params.width - 1
     domain_tag = (1 << (params.width - 1)) - 1
