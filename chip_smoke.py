@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (`openzl_tpu_torch`) on one GPU.
 
-Drives the port's two paths through the entry points a user calls, the
-Groth16 prover and Poseidon hashing with the Merkle tree, and checks every
-hand-written kernel on the way. Phases:
+Drives the port's three paths through the entry points a user calls, the
+Groth16 prover, Poseidon hashing with the Merkle tree, and KZG commitments
+with dense polynomials, and checks every hand-written kernel on the way.
+Phases:
 
   1. device   the card's name and power limit; fails without CUDA
-  2. build    nvcc builds the kernels (K1-K7) and `make -C native` the
+  2. build    nvcc builds the kernels (K1-K9) and `make -C native` the
               host library; prints the build seconds and each kernel's
               registers and spill stores (`-Xptxas -v`)
   3. kernels  each kernel against its plain torch version on the card,
@@ -16,7 +17,8 @@ hand-written kernel on the way. Phases:
   5. slice    BN254 Poseidon hash chain (512 links, about 2^17
               constraints): compile once, answer 3 prove requests (fresh
               witness, fresh r and s), verify each, reject a fuzzed input;
-              launch counters zeroed before the requests and read after;
+              launch counters zeroed before the requests and read after
+              (every Groth16 kernel, the fold K9 included, must launch);
               then one more request under torch.profiler (device busy
               share, device time by kernel, host launches and syncs;
               `openzl_tpu_torch.utils.profile`)
@@ -32,6 +34,21 @@ hand-written kernel on the way. Phases:
               the plain hash; then one more warm build under torch.profiler,
               K5 on a single block (the latency of one state) and the device
               time of each level of two more warm builds (CUDA events)
+  7. kzg      K8 against its plain version on one stage of 2^12 BN254 Fr
+              points (batch 1 and 4), both NTT routes at 2^10 and 2^12, K9
+              against its plain version on the G1 fold of a 2^16-point
+              commit and the Fq2 fold of phase 5's B2 MSM (bit-exact); then,
+              with the launch counters zeroed before and read after, the
+              slice: `KZG(BN254, backend="device")` setup of degree
+              2^16 - 1, commit, open, verify (and reject v + 1),
+              batch_verify of 4 openings at distinct points (and reject a
+              changed v), params to_bytes / from_bytes / device_params /
+              commit, a `DensePoly` product of two degree-2047 polynomials
+              (the K8 route) and `divide_by_vanishing_poly` on the device
+              at n = 2^12, each checked at a random point; wall ms of each
+              step and peak device memory; K8 and K9 must launch. Then one
+              more commit under torch.profiler, and one commit + open at
+              degree 2^20 - 1, timed
 
 Prints a JSON line of per-kernel results (times, launches on their path,
 and the bound: the least time the card could take for the same work), then,
@@ -262,7 +279,7 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
            (_mont_words(16, n), 2 * n * 16 * 4 + 16 * 4))
 
     # K2: every (M, lanes, post-twiddle) launch of the 2^log_n NTT plan
-    node, _ = ntt._plan(BN254_FR, log_n, False, 1, dev)
+    node, _ = ntt._fourstep_plan(BN254_FR, log_n, False, 1, dev)
     nt, c = n, 1
     while node is not None:
         stage_tw, _, level_tw, inner = node
@@ -398,7 +415,13 @@ def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
     missing = [n for n, c in launches.items() if c == 0]
     if missing and cuda:
         fail(f"kernels never launched on the main path: {missing}")
-    return launches, walls
+    # the B2 MSM's fold inputs of one more request, for K9's check in phase 7
+    from openzl_tpu_torch.fields import limb
+    from openzl_tpu_torch.ops import msm
+
+    z_can = limb.tensor(calc.evaluate_limbs([digest], witness), g16.device)
+    b2_fold = msm.fold_inputs(g16.pairing.g2, [(z_can, pk.b_g2_query)])
+    return launches, walls, b2_fold
 
 
 # ---------------------------------------------------------------------------
@@ -620,6 +643,159 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
     return results, launches
 
 
+# ---------------------------------------------------------------------------
+# 7. kzg: KZG commitments, dense polynomials, K8 and K9
+# ---------------------------------------------------------------------------
+
+
+def _fold_check(name, results, curve, fold_in, device, reps):
+    """K9 against its plain version on one MSM's sorted entries (one job:
+    W 2^c bucket slots and the dump slot)."""
+    from openzl_tpu_torch.ops import ec_kernel
+
+    pts, keys, pidx, r, c, W = fold_in
+    width = (W << c) + 1
+    args = (curve, pts, keys, pidx, r, width)
+    got, exp = ec_kernel.fold_madd(*args), ec_kernel.fold_madd_plain(*args)
+
+    def flat(out):  # (totals, tflag, buckets, bflag, bchunk) -> tensors
+        return [*out[0], out[1], *out[2], out[3], out[4]]
+
+    ms = _time(lambda: ec_kernel.fold_madd(*args), reps, device)
+    pms = _time(lambda: ec_kernel.fold_madd_plain(*args), 1, device)
+    E, l, ext, n_limbs = keys.numel(), keys.numel() // r, curve.ext, curve.base.n_limbs
+    starts = int((keys[1:] != keys[:-1]).sum().item()) + 1
+    prod, sqr = EC_PRODUCTS["madd", ext]
+    coord = ext * n_limbs * 4
+    moved = E * 16 + pts.x.shape[-1] * 2 * coord + l * (3 * coord + 1) + width * (3 * coord + 9)
+    _check("fold_madd", results, flat(got), flat(exp), ms, pms,
+           f"{name}: {E} entries, r={r}, {l} chunks, c={c}, {W} windows, {starts} segments",
+           (_mont_words(n_limbs, (E - starts) * prod, (E - starts) * sqr), moved))
+
+
+def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int = 20, log_mul: int = 11,
+              reps: int = 20, seed: int = 7):
+    """Phase 7. Returns (kernel results, launches of the slice's kernels)."""
+    import torch
+
+    from openzl_tpu_torch.fields import limb
+    from openzl_tpu_torch.fields.spec import BN254_FR
+    from openzl_tpu_torch.ops import msm, ntt, ntt_kernel
+    from openzl_tpu_torch.ops.poly import DensePoly, Radix2Domain
+    from openzl_tpu_torch.proof_systems import BN254, KZG, KZGParams
+    from openzl_tpu_torch.utils import profile as prof
+
+    dev = torch.device(device)
+    rng = random.Random(seed)
+    results = {}
+    spec, g1, r = BN254_FR, BN254.g1, BN254.r
+
+    # K8: one middle stage of a 2^12 transform, batch 1 and 4
+    log_n = 12
+    _, table, _ = ntt._plan(spec, log_n, False, dev)
+    for batch in (1, 4):
+        x = _rand_field(spec, batch << log_n, rng, dev).reshape(spec.n_limbs, batch, 1 << log_n)
+        x = x.transpose(1, 2).contiguous()
+        if batch == 1:
+            x = x[:, :, 0].contiguous()
+        got = ntt_kernel.stage(spec, x, table, 5)
+        exp = ntt_kernel.stage_plain(spec, x, table, 5)
+        ms = _time(lambda: ntt_kernel.stage(spec, x, table, 5), reps * 5, dev)
+        pms = _time(lambda: ntt_kernel.stage_plain(spec, x, table, 5), 3, dev)
+        half = (batch << log_n) // 2
+        _check("butterfly", results, [got], [exp], ms, pms, f"bn254_fr stage 5 of 2^{log_n} (batch {batch})",
+               (_mont_words(16, half), (4 * half + (1 << log_n) // 2) * 16 * 4))
+
+    # both NTT routes below the four-step threshold
+    for log_n in (10, 12):
+        x = _rand_field(spec, 1 << log_n, rng, dev)
+        if not torch.equal(ntt._ntt_core(spec, x, False), ntt.fourstep_transform(spec, x, False)):
+            fail(f"the NTT routes disagree at 2^{log_n}")
+        t_stage = _time(lambda: ntt._ntt_core(spec, x, False), reps, dev)
+        t_four = _time(lambda: ntt.fourstep_transform(spec, x, False), reps, dev)
+        log(f"[kzg] NTT 2^{log_n} BN254 Fr: per-stage route (K8) {t_stage:.4f} ms, four-step route (K2) "
+            f"{t_four:.4f} ms; the same evaluations")
+
+    # K9: the G1 fold of a 2^log_d-point commit, the Fq2 fold of phase 5's B2
+    kzg = KZG(BN254, backend="device", device=dev)
+    d = (1 << log_d) - 1
+    params = kzg.setup(d, random.Random(seed))
+    coeffs = [rng.randrange(r) for _ in range(d + 1)]
+    scalars = limb.tensor(limb.pack(spec, coeffs), dev)
+    _fold_check(f"bn254 G1 commit of 2^{log_d}", results, g1, msm.fold_inputs(g1, [(scalars, params.powers_g1)]),
+                dev, reps)
+    if b2_fold is not None:
+        _fold_check("bn254 G2 B2 MSM of phase 5", results, BN254.g2, b2_fold, dev, reps)
+
+    # the slice through its entry points, launch counters zeroed before
+    for k in all_kernels:
+        k.launches = 0
+    steps = []
+
+    def step(label, fn):
+        out, ms = _wall(fn, dev)
+        steps.append((label, ms, _peak(dev)))
+        log(f"[kzg] {label}: {ms:.3f} ms wall, peak {_peak(dev)}")
+        return out
+
+    params = step(f"setup degree 2^{log_d} - 1", lambda: kzg.setup(d, random.Random(seed)))
+    C = step(f"commit degree 2^{log_d} - 1", lambda: kzg.commit(params, coeffs))
+    zs = [rng.randrange(r) for _ in range(4)]
+    opened = [step(f"open {i + 1} at a random z", lambda z=z: kzg.open(params, coeffs, z)) for i, z in enumerate(zs)]
+    v, w = opened[0]
+    if not step("verify", lambda: kzg.verify(params, C, zs[0], v, w)):
+        fail("a KZG opening did not verify")
+    if kzg.verify(params, C, zs[0], (v + 1) % r, w):
+        fail("a KZG opening with v + 1 verified")
+    claims = [(C, z, vz, wz) for z, (vz, wz) in zip(zs, opened)]
+    if not step("batch_verify of 4 openings", lambda: kzg.batch_verify(params, claims, rng)):
+        fail("batch_verify rejected 4 valid openings")
+    bad = claims[:2] + [(C, zs[2], (opened[2][0] + 1) % r, opened[2][1])] + claims[3:]
+    if kzg.batch_verify(params, bad, rng):
+        fail("batch_verify accepted a changed v")
+    log("[kzg] v + 1 rejected by verify, a changed v by batch_verify")
+    blob = step("params to_bytes", params.to_bytes)
+    loaded = step("params from_bytes + device_params", lambda: kzg.device_params(KZGParams.from_bytes(BN254, blob)))
+    if step("commit with the loaded params", lambda: kzg.commit(loaded, coeffs)) != C:
+        fail("the loaded params commit to another point")
+    a, b = (DensePoly.rand(spec, (1 << log_mul) - 1, rng, device=dev) for _ in range(2))
+    prod = step(f"DensePoly product of two degree 2^{log_mul} - 1 polynomials", lambda: a * b)
+    z = rng.randrange(r)
+    if prod.degree != 2 * a.degree or prod.evaluate(z) != a.evaluate(z) * b.evaluate(z) % r:
+        fail("the DensePoly product is wrong at a random point")
+    dom = Radix2Domain.new(spec, 1 << 12, device=dev)
+    big = DensePoly.rand(spec, 3 << 12, rng, device=dev)
+    q, rem = step("divide_by_vanishing_poly at n = 2^12 (device path)",
+                  lambda: big.divide_by_vanishing_poly(dom, on_device=True))
+    if big.evaluate(z) != (q.evaluate(z) * dom.evaluate_vanishing(z) + rem.evaluate(z)) % r or rem.degree >= dom.size:
+        fail("divide_by_vanishing_poly is wrong at a random point")
+    log("[kzg] the product and the division hold at a random point")
+    launches = {k.name: k.launches for k in all_kernels}
+    log(f"[kzg] launches during the slice: {launches}")
+    missing = [n for n in ("butterfly", "fold_madd") if launches[n] == 0]
+    if missing and dev.type == "cuda":
+        fail(f"kernels never launched on the KZG slice: {missing}")
+    report = prof.profile(lambda: kzg.commit(params, coeffs))
+    log(f"[profile] one more commit of degree 2^{log_d} - 1")
+    for line in report.lines(8):
+        log(f"[profile] {line}")
+    if dev.type == "cuda" and not report.device_events:
+        fail("the profiler recorded no device activity")
+
+    # one commit + open at degree 2^log_big - 1
+    if log_big:
+        D = (1 << log_big) - 1
+        big_params = step(f"setup degree 2^{log_big} - 1", lambda: kzg.setup(D, random.Random(seed)))
+        big_coeffs = [rng.randrange(r) for _ in range(D + 1)]
+        Cb = step(f"commit degree 2^{log_big} - 1", lambda: kzg.commit(big_params, big_coeffs))
+        zb = rng.randrange(r)
+        vb, wb = step(f"open degree 2^{log_big} - 1", lambda: kzg.open(big_params, big_coeffs, zb))
+        if not kzg.verify(big_params, Cb, zb, vb, wb):
+            fail(f"the degree 2^{log_big} - 1 opening did not verify")
+        log(f"[kzg] degree 2^{log_big} - 1 opening verifies")
+    return results, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--chain", type=int, default=512, help="Poseidon chain links of the slice")
@@ -636,18 +812,22 @@ def main() -> None:
 
     from openzl_tpu_torch.ops import ec_kernel, ntt_kernel, poseidon2_kernel, poseidon_kernel
 
-    groth16_kernels = [ntt_kernel.K1, ntt_kernel.K2, ec_kernel.K3, ec_kernel.K4]
+    groth16_kernels = [ntt_kernel.K1, ntt_kernel.K2, ec_kernel.K3, ec_kernel.K4, ec_kernel.K9]
     hash_kernels = [poseidon_kernel.K5, poseidon_kernel.K6, poseidon2_kernel.K7]
-    kernels = groth16_kernels + hash_kernels
+    kzg_kernels = [ntt_kernel.K8]
+    kernels = [*groth16_kernels[:4], *hash_kernels, ntt_kernel.K8, ec_kernel.K9]
     results = phase_kernels()
     phase_roundtrip()
-    launches, _ = phase_slice(args.chain, args.proofs, kernels, groth16_kernels)
+    launches, _, b2_fold = phase_slice(args.chain, args.proofs, kernels, groth16_kernels)
     hash_results, hash_launches = phase_hash(kernels)
     results.update(hash_results)
     launches = {**launches, **{k.name: hash_launches[k.name] for k in hash_kernels}}
     missing = [k.name for k in hash_kernels if hash_launches[k.name] == 0]
     if missing:
         fail(f"kernels never launched on the hash slice: {missing}")
+    kzg_results, kzg_launches = phase_kzg(kernels, b2_fold)
+    results.update(kzg_results)
+    launches.update({k.name: kzg_launches[k.name] for k in kzg_kernels})
 
     # bound: the larger of the word products over the card's 32-bit integer
     # multiply rate (64 multiply issues per clock per SM, two per 32x32->64
@@ -670,19 +850,6 @@ def main() -> None:
             b_ms, b_by = bound(work)
             log(f"[bound] {name} {shape}: bound {b_ms:.4f} ms ({b_by}), kernel {ms:.4f} ms, "
                 f"{b_ms / ms:.1%} of the bound")
-    # the same reckoning for the two TPU kernels still to port, at the
-    # shapes the reference would give them: one radix-2 stage at the
-    # 512-link domain (2^17 points: 2^16 products; u, t, w read, lo, hi
-    # written) and a G1 mixed-add fold over 16 sorted columns of 2^16 lanes
-    # (the columns read, every prefix and the totals written)
-    for label, work in (
-        ("butterfly (row 4), one stage of 2^17 BN254 Fr points",
-         (_mont_words(16, 2**16), 5 * 2**16 * 16 * 4)),
-        ("fold_madd (row 8), 16 columns x 2^16 lanes of BN254 G1",
-         (_mont_words(16, *(16 * 2**16 * c for c in EC_PRODUCTS["madd", 1])), (6 * 16 + 3) * 2**16 * 16 * 4)),
-    ):
-        b_ms, b_by = bound(work)
-        log(f"[bound] {label}: {b_ms:.4f} ms ({b_by})")
     rows = []
     for k in kernels:
         runs = results[k.name]
@@ -694,7 +861,8 @@ def main() -> None:
             "ms": runs[0][1], "plain_ms": runs[0][2],
             "bound_ms": b_ms, "bound_by": b_by,
             # no single PyTorch call computes a Montgomery product, an NTT
-            # over a prime field, a group law or a Poseidon permutation
+            # over a prime field, a radix-2 Montgomery butterfly, a group
+            # law, a curve fold or a Poseidon permutation
             "library_ms": None,
         })
     log(smi)

@@ -1,7 +1,8 @@
-// Jacobian group law shared by the EC kernels (ec_kernel.cu): the formulas
-// and special-case masks of openzl_tpu/ops/ec_kernel.py `_k_ec_double` and
-// `_add_core` (:193-272), generic over the coordinate field (F1 or F2 from
-// field.cuh). Compiles as host C++ too.
+// Jacobian group law shared by the EC kernels (ec_kernel.cu, fold_kernel.cu):
+// the formulas and special-case masks of openzl_tpu/ops/ec_kernel.py
+// `_k_ec_double` and `_add_core` (:193-272), generic over the coordinate
+// field (F1 or F2 from field.cuh), and the MSM's sorted-chunk fold.
+// Compiles as host C++ too.
 #pragma once
 #include "field.cuh"
 
@@ -99,3 +100,77 @@ OZL_HD void ec_add(const EcParams<F>& E, const typename F::T& X1, const typename
   Z3 = z3;
 }
 
+
+// One chunk of the MSM bucket fold (K9, fold_kernel.cu): entries e0 ..
+// e0 + r - 1 of the sorted keys (n entries in all) with point indices pidx
+// into the normalized points (px, py; n_pts of them). acc starts at the
+// identity; at each entry acc = start ? q : madd(acc, q); at a segment tail
+// the prefix goes to bucket slot `key` with its bflag (the segment started
+// in this chunk) and the chunk index c. Returns whether the chunk holds a
+// start; the chunk total is left in (ax, ay, az).
+template <class F>
+OZL_HD bool fold_chunk(const EcParams<F>& E, const int64_t* keys, const int64_t* pidx, int64_t n,
+                       int64_t c, int r, const int32_t* px, const int32_t* py, int64_t n_pts,
+                       const typename F::T& one, int32_t* bx, int32_t* by, int32_t* bz,
+                       uint8_t* bflag, int64_t* bchunk, int64_t width, typename F::T& ax,
+                       typename F::T& ay, typename F::T& az) {
+  using T = typename F::T;
+  T* tag = nullptr;
+  ax = F::raw_one();
+  ay = F::raw_one();
+  az = F::zero();
+  bool started = false;  // a segment started in this chunk, at or before j
+  const int64_t e0 = c * r;
+  int64_t prev = e0 > 0 ? keys[e0 - 1] : -1;
+  for (int j = 0; j < r; ++j) {
+    const int64_t e = e0 + j;
+    const int64_t key = keys[e];
+    const int64_t next = e + 1 < n ? keys[e + 1] : -1;
+    const int64_t i = pidx[e];
+    T qx = load_coord(px, n_pts, i, tag), qy = load_coord(py, n_pts, i, tag);
+    if (key != prev) {
+      ax = qx;
+      ay = qy;
+      az = one;
+      started = true;
+    } else {
+      T sx, sy, sz;
+      ec_add<F, true>(E, ax, ay, az, qx, qy, one, sx, sy, sz);
+      ax = sx;
+      ay = sy;
+      az = sz;
+    }
+    if (key != next) {  // segment tail: its prefix is the bucket's chunk-local sum
+      store_coord(bx, width, key, ax);
+      store_coord(by, width, key, ay);
+      store_coord(bz, width, key, az);
+      bflag[key] = started;
+      bchunk[key] = c;
+    }
+    prev = key;
+  }
+  return started;
+}
+
+// host constants -> EcParams over Fq (1) or Fq2 (2, u^2 = beta)
+template <int NW>
+inline EcParams<F1<NW>> params1(const uint32_t* p, uint32_t n0, int has_a, const uint32_t* a) {
+  EcParams<F1<NW>> E;
+  E.field = F1<NW>{make_params<NW>(p, n0)};
+  E.has_a = has_a != 0;
+  for (int i = 0; i < NW; ++i) E.a.w[i] = has_a ? a[i] : 0;
+  return E;
+}
+
+template <int NW>
+inline EcParams<F2<NW>> params2(const uint32_t* p, uint32_t n0, int beta, int has_a,
+                                const uint32_t* a) {
+  EcParams<F2<NW>> E;
+  E.field = F2<NW>{F1<NW>{make_params<NW>(p, n0)}, -beta};
+  E.has_a = has_a != 0;
+  for (int i = 0; i < NW; ++i) {
+    E.a.c0.w[i] = has_a ? a[i] : 0;
+    E.a.c1.w[i] = has_a ? a[NW + i] : 0;
+  }
+  return E;
+}

@@ -61,28 +61,6 @@ __global__ void __launch_bounds__(128)
   store_coord(z3, N, i, Z3);
 }
 
-template <int NW>
-EcParams<F1<NW>> params1(const uint32_t* p, uint32_t n0, int has_a, const uint32_t* a) {
-  EcParams<F1<NW>> E;
-  E.field = F1<NW>{make_params<NW>(p, n0)};
-  E.has_a = has_a != 0;
-  for (int i = 0; i < NW; ++i) E.a.w[i] = has_a ? a[i] : 0;
-  return E;
-}
-
-template <int NW>
-EcParams<F2<NW>> params2(const uint32_t* p, uint32_t n0, int beta, int has_a,
-                         const uint32_t* a) {
-  EcParams<F2<NW>> E;
-  E.field = F2<NW>{F1<NW>{make_params<NW>(p, n0)}, -beta};
-  E.has_a = has_a != 0;
-  for (int i = 0; i < NW; ++i) {
-    E.a.c0.w[i] = has_a ? a[i] : 0;
-    E.a.c1.w[i] = has_a ? a[NW + i] : 0;
-  }
-  return E;
-}
-
 const int kThreads = 128;
 
 template <class F>

@@ -1,4 +1,5 @@
-// K1: elementwise Montgomery product, and K2: batched M-point DIF NTT.
+// K1: elementwise Montgomery product, K2: batched M-point DIF NTT, and
+// K8: one radix-2 butterfly stage.
 //
 // K1 replaces openzl_tpu/ops/ntt_kernel.py `_make_mul_kernel` (:56, through
 // `mont_mul()` :259 and `mont_scale()` :268). One thread per element; the
@@ -22,6 +23,22 @@
 // TPU's M <= 64 and rolled-stage layout were VMEM artefacts; here M is any
 // power of two up to 64 chosen by the caller, and the twiddle table is
 // (n_limbs, log2 M, M/2) with entry j of stage s = w_M^(2^s j).
+//
+// K8 replaces `_make_butterfly_kernel` (:44, through `butterfly()` :244):
+// lo = u + t, hi = (u - t) w. The reference feeds it operands that XLA has
+// already split, gathered (the stage twiddles) and later interleaves; here
+// one launch is one whole constant-geometry (Pease) DIF stage of
+// ops/ntt.py `_ntt_core`: thread (k, b) reads x[k] and x[k + N/2] of batch
+// column b, takes the twiddle W[k & ~(2^s - 1)] from the (n_limbs, N/2)
+// root table by index, and writes lo to slot 2k and hi to slot 2k + 1, so
+// no gather, stack or reshape runs around a stage. One thread per
+// butterfly, words in registers, the CIOS product of field.cuh. Bound on
+// the card: bytes (u and t read, lo and hi written, 16 bytes per 32-bit
+// word each; the table is small and L2-resident) against one Montgomery
+// product per butterfly, so a stage is a streaming pass; the design
+// touches each element once per stage. Strides make the same kernel the
+// elementwise butterfly (separate lo and hi arrays, a full twiddle array,
+// mask -1, batch 1).
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -144,7 +161,59 @@ int launch_small_ntt(void* out, const void* x, const void* stage_tw, const void*
   return (int)cudaGetLastError();
 }
 
+// element (k, b) of u / t at k * B + b (limb stride in_ls); twiddle
+// k & mask of tw (limb stride tw_ls); lo / hi at k * out_ks + b
+template <int NW>
+__global__ void butterfly_kernel(const int32_t* u, const int32_t* t, int64_t in_ls,
+                                 const int32_t* tw, int64_t tw_ls, int64_t mask, int32_t* lo,
+                                 int32_t* hi, int64_t out_ls, int64_t out_ks, int64_t H,
+                                 int64_t B, FieldParams<NW> f) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= H * B) return;
+  const int64_t k = i / B, b = i - k * B;
+  F1<NW> F{f};
+  Fp<NW> x = load_fp<NW>(u, in_ls, i);
+  Fp<NW> y = load_fp<NW>(t, in_ls, i);
+  Fp<NW> w = load_fp<NW>(tw, tw_ls, k & mask);
+  const int64_t o = k * out_ks + b;
+  store_fp<NW>(lo, out_ls, o, F.add(x, y));
+  store_fp<NW>(hi, out_ls, o, F.mul(F.sub(x, y), w));
+}
+
+template <int NW>
+int launch_butterfly(const void* u, const void* t, int64_t in_ls, const void* tw, int64_t tw_ls,
+                     int64_t mask, void* lo, void* hi, int64_t out_ls, int64_t out_ks, int64_t H,
+                     int64_t B, const uint32_t* p, uint32_t n0, cudaStream_t st) {
+  const int threads = 256;
+  int64_t blocks = (H * B + threads - 1) / threads;
+  if (blocks > 0)
+    butterfly_kernel<NW><<<(unsigned)blocks, threads, 0, st>>>(
+        (const int32_t*)u, (const int32_t*)t, in_ls, (const int32_t*)tw, tw_ls, mask,
+        (int32_t*)lo, (int32_t*)hi, out_ls, out_ks, H, B, make_params<NW>(p, n0));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int ozl_butterfly(const void* u, const void* t, int64_t in_ls, const void* tw,
+                             int64_t tw_ls, int64_t mask, void* lo, void* hi, int64_t out_ls,
+                             int64_t out_ks, int64_t H, int64_t B, int n_limbs, const void* p,
+                             uint32_t n0, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* pw = (const uint32_t*)p;
+  switch (n_limbs) {
+    case 2:
+      return launch_butterfly<1>(u, t, in_ls, tw, tw_ls, mask, lo, hi, out_ls, out_ks, H, B, pw,
+                                 n0, st);
+    case 16:
+      return launch_butterfly<8>(u, t, in_ls, tw, tw_ls, mask, lo, hi, out_ls, out_ks, H, B, pw,
+                                 n0, st);
+    case 24:
+      return launch_butterfly<12>(u, t, in_ls, tw, tw_ls, mask, lo, hi, out_ls, out_ks, H, B, pw,
+                                  n0, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 extern "C" int ozl_mont_mul(void* out, const void* a, const void* b, int64_t N, int64_t b_ls,
                             int64_t b_es, int n_limbs, const void* p, uint32_t n0,

@@ -1,8 +1,10 @@
-"""Kernels K3 (Jacobian add / mixed add) and K4 (Jacobian double).
+"""Kernels K3 (Jacobian add / mixed add), K4 (Jacobian double) and K9 (the
+MSM's sorted-chunk mixed-add fold).
 
-Port of `openzl_tpu/ops/ec_kernel.py` `ec_op`. CUDA sources:
-`openzl_tpu_torch/csrc/ec_kernel.cu` and `ec.cuh` (design notes there);
-this module holds the wrappers, launch counters and plain torch versions.
+Port of `openzl_tpu/ops/ec_kernel.py` `ec_op` and `fold_madd`. CUDA
+sources: `openzl_tpu_torch/csrc/ec_kernel.cu`, `fold_kernel.cu` and
+`ec.cuh` (design notes there); this module holds the wrappers, launch
+counters and plain torch versions.
 
 Coordinates are Montgomery limb tensors (n_limbs, *batch) over Fq (G1) or
 (n_limbs, 2, *batch) over Fq2 (G2). Formulas and special-case masks follow
@@ -34,6 +36,11 @@ K4 = build.KernelInfo(
     source="openzl_tpu_torch/csrc/ec_kernel.cu",
     replaces="openzl_tpu/ops/ec_kernel.py:314",
 )
+K9 = build.KernelInfo(
+    name="fold_madd",
+    source="openzl_tpu_torch/csrc/fold_kernel.cu",
+    replaces="openzl_tpu/ops/ec_kernel.py:430",
+)
 
 
 def field_ops(curve: CurveSpec, plain: bool = False):
@@ -61,22 +68,30 @@ def _a_const(curve: CurveSpec, F, like):
     return F.const(curve.a, like.ndim - F.value_ndim, like.device)
 
 
+def _products(F, *pairs):
+    """The products a b of several (a, b) operand pairs as ONE batched field
+    product over a new trailing axis: the plain versions pay per torch
+    call, and each formula step's products are independent."""
+    ops = torch.broadcast_tensors(*(t for pair in pairs for t in pair))
+    return F.mul(torch.stack(ops[0::2], dim=-1), torch.stack(ops[1::2], dim=-1)).unbind(-1)
+
+
 def ec_dbl_plain(curve: CurveSpec, X, Y, Z):
     """dbl-2009-l (a = 0) or M = 3X^2 + a Z^4 (generic a); Z3 = 2YZ keeps
     the identity. Plain torch on any device."""
     F = field_ops(curve, plain=True)
-    A = F.sqr(X)
-    B = F.sqr(Y)
-    C = F.sqr(B)
-    D = F.double(F.sub(F.sqr(F.add(X, B)), F.add(A, C)))
+    A, B = _products(F, (X, X), (Y, Y))
+    XB = F.add(X, B)
+    C, T = _products(F, (B, B), (XB, XB))
+    D = F.double(F.sub(T, F.add(A, C)))
     E = F.add(F.double(A), A)
     if curve.a != 0:
         E = F.add(E, F.mul(_a_const(curve, F, Z), F.sqr(F.sqr(Z))))
-    X3 = F.sub(F.sqr(E), F.double(D))
+    EE, YZ = _products(F, (E, E), (Y, Z))
+    X3 = F.sub(EE, F.double(D))
     C8 = F.double(F.double(F.double(C)))
-    Y3 = F.sub(F.mul(E, F.sub(D, X3)), C8)
-    Z3 = F.double(F.mul(Y, Z))
-    return X3, Y3, Z3
+    (EDX,) = _products(F, (E, F.sub(D, X3)))
+    return X3, F.sub(EDX, C8), F.double(YZ)
 
 
 def ec_add_plain(curve: CurveSpec, P, Q, mixed: bool):
@@ -85,32 +100,30 @@ def ec_add_plain(curve: CurveSpec, P, Q, mixed: bool):
     F = field_ops(curve, plain=True)
     X1, Y1, Z1 = P
     X2, Y2, Z2 = Q
-    Z1Z1 = F.sqr(Z1)
     if mixed:
+        (Z1Z1,) = _products(F, (Z1, Z1))
         U1, S1 = X1, Y1
-        U2 = F.mul(X2, Z1Z1)
-        S2 = F.mul(Y2, F.mul(Z1, Z1Z1))
+        U2, Z1c = _products(F, (X2, Z1Z1), (Z1, Z1Z1))
+        (S2,) = _products(F, (Y2, Z1c))
     else:
-        Z2Z2 = F.sqr(Z2)
-        U1 = F.mul(X1, Z2Z2)
-        U2 = F.mul(X2, Z1Z1)
-        S1 = F.mul(Y1, F.mul(Z2, Z2Z2))
-        S2 = F.mul(Y2, F.mul(Z1, Z1Z1))
+        Z1Z1, Z2Z2 = _products(F, (Z1, Z1), (Z2, Z2))
+        U1, U2, Z2c, Z1c = _products(F, (X1, Z2Z2), (X2, Z1Z1), (Z2, Z2Z2), (Z1, Z1Z1))
+        S1, S2 = _products(F, (Y1, Z2c), (Y2, Z1c))
     H = F.sub(U2, U1)
-    if mixed:
-        HH = F.sqr(H)
-        I = F.double(F.double(HH))
-    else:
-        I = F.sqr(F.double(H))
-    J = F.mul(H, I)
     r = F.double(F.sub(S2, S1))
-    V = F.mul(U1, I)
-    X3 = F.sub(F.sqr(r), F.add(J, F.double(V)))
-    Y3 = F.sub(F.mul(r, F.sub(V, X3)), F.double(F.mul(S1, J)))
     if mixed:
-        Z3 = F.sub(F.sub(F.sqr(F.add(Z1, H)), Z1Z1), HH)
+        HH, rr = _products(F, (H, H), (r, r))
+        I = F.double(F.double(HH))
+        ZH = F.add(Z1, H)
+        J, V, ZH2 = _products(F, (H, I), (U1, I), (ZH, ZH))
+        Z3 = F.sub(F.sub(ZH2, Z1Z1), HH)
     else:
-        Z3 = F.mul(F.sub(F.sqr(F.add(Z1, Z2)), F.add(Z1Z1, Z2Z2)), H)
+        H2, Z12 = F.double(H), F.add(Z1, Z2)
+        I, rr, Z12s = _products(F, (H2, H2), (r, r), (Z12, Z12))
+        J, V, Z3 = _products(F, (H, I), (U1, I), (F.sub(Z12s, F.add(Z1Z1, Z2Z2)), H))
+    X3 = F.sub(rr, F.add(J, F.double(V)))
+    rVX, S1J = _products(F, (r, F.sub(V, X3)), (S1, J))
+    Y3 = F.sub(rVX, F.double(S1J))
 
     p_inf = F.is_zero(Z1)
     q_inf = F.is_zero(Z2)
@@ -142,11 +155,11 @@ def ec_add_plain(curve: CurveSpec, P, Q, mixed: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def _a_words(curve: CurveSpec) -> np.ndarray:
-    """Montgomery form of the curve coefficient a as uint32 words
-    (c0 words then c1 words over Fq2)."""
+def _const_words(curve: CurveSpec, value: int) -> np.ndarray:
+    """Montgomery form of a base-field constant (value + 0 u over Fq2) as
+    uint32 words (c0 words then c1 words over Fq2)."""
     spec = curve.base
-    pair = (curve.a, 0) if curve.ext == 2 else (curve.a,)
+    pair = (value, 0) if curve.ext == 2 else (value,)
     words = []
     for c in pair:
         m = spec.to_mont(c % spec.modulus)
@@ -172,7 +185,7 @@ def _flat(curve: CurveSpec, coords):
 def _launch_args(curve: CurveSpec):
     words, n0 = word_consts(curve.base)
     has_a = int(curve.a != 0)
-    return words, n0, curve.nr2, has_a, _a_words(curve)
+    return words, n0, curve.nr2, has_a, _const_words(curve, curve.a)
 
 
 def ec_add(curve: CurveSpec, P, Q, mixed: bool = False):
@@ -210,3 +223,89 @@ def ec_dbl(curve: CurveSpec, P):
     build.check(code, "K4 ec_dbl")
     K4.launches += 1
     return tuple(o.reshape(shape) for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# K9: sorted-chunk mixed-add fold (the MSM bucket step)
+# ---------------------------------------------------------------------------
+
+
+def _fold_outputs(curve: CurveSpec, l: int, width: int, device):
+    """The fold's outputs as both versions start them: chunk totals (l,) and
+    their start flags, and the bucket slots (width,) that segment tails
+    overwrite, initialised to the identity (X = Y = Montgomery one, Z = 0),
+    flag True and chunk 0, so an untouched slot combines to the identity."""
+    F = field_ops(curve)
+    totals = tuple(F.zeros((l,), device) for _ in range(3))
+    tflag = torch.zeros(l, dtype=torch.bool, device=device)
+    one = F.one((width,), device)
+    buckets = tuple(one.clone(memory_format=torch.contiguous_format) for _ in range(2))
+    buckets += (F.zeros((width,), device),)
+    bflag = torch.ones(width, dtype=torch.bool, device=device)
+    bchunk = torch.zeros(width, dtype=torch.int64, device=device)
+    return totals, tflag, buckets, bflag, bchunk
+
+
+def fold_madd_plain(curve: CurveSpec, pts, keys, pidx, r: int, width: int):
+    """Plain torch K9: the reference's `_fold_columns` loop (r mixed adds and
+    selects over the l = len(keys) / r chunks, entry j of chunk c being
+    element c r + j) and then the pick of each segment tail's prefix into
+    bucket slot `key`. Returns the same tensors as `fold_madd`."""
+    F = field_ops(curve, plain=True)
+    n = keys.shape[0]
+    l = n // r
+    dev = keys.device
+    totals, tflag, buckets, bflag, bchunk = _fold_outputs(curve, l, width, dev)
+    none = keys.new_full((1,), -1)
+    starts = (keys != torch.cat([none, keys[:-1]])).reshape(l, r)
+    tails = (keys != torch.cat([keys[1:], none])).reshape(l, r)
+    key_cols, idx_cols = keys.reshape(l, r), pidx.reshape(l, r)
+    chunk = torch.arange(l, device=dev)
+    one = F.one((l,), dev)
+    acc = (one, one, F.zeros((l,), dev))
+    for j in range(r):
+        i = idx_cols[:, j]
+        q = (pts[0][..., i], pts[1][..., i], one)
+        s = starts[:, j]
+        summed = ec_add_plain(curve, acc, q, mixed=True)
+        acc = tuple(F.select(s, a, b) for a, b in zip(q, summed))
+        tflag = tflag | s
+        t = tails[:, j]
+        slot = key_cols[t, j]
+        for b, a in zip(buckets, acc):
+            b[..., slot] = a[..., t]
+        bflag[slot] = tflag[t]
+        bchunk[slot] = chunk[t]
+    return acc, tflag, buckets, bflag, bchunk
+
+
+def fold_madd(curve: CurveSpec, pts, keys, pidx, r: int, width: int):
+    """Fold the sorted MSM entries in chunks of r (K9).
+
+    pts: the normalized points (X, Y, Z), batch (n_pts,), every entry's
+    point live (Z = 1); keys: sorted int64 bucket keys in [0, width), length
+    a multiple of r; pidx: each entry's point index. Returns ((X, Y, Z) chunk
+    totals, chunk-holds-a-start flags, (X, Y, Z) bucket slots with each
+    segment tail's chunk-local prefix, bflag (the segment started in the
+    tail's chunk; True where no tail), the tail's chunk index)."""
+    if keys.shape != pidx.shape or keys.ndim != 1 or keys.shape[0] % r:
+        raise ValueError(f"fold_madd: keys {tuple(keys.shape)}, pidx {tuple(pidx.shape)}, r={r}")
+    if device_kind(keys, pidx, *pts) == "cpu":
+        return fold_madd_plain(curve, pts, keys, pidx, r, width)
+    (px, py), _ = _flat(curve, tuple(pts[:2]))
+    if keys.dtype != torch.int64 or pidx.dtype != torch.int64:
+        raise ValueError("fold_madd: keys and pidx must be int64")
+    keys, pidx = keys.contiguous(), pidx.contiguous()
+    l = keys.shape[0] // r
+    totals, tflag, buckets, bflag, bchunk = _fold_outputs(curve, l, width, keys.device)
+    words, n0, beta, has_a, a_words = _launch_args(curve)
+    code = build.lib().ozl_fold_madd(
+        curve.ext, keys.data_ptr(), pidx.data_ptr(), l, r, px.data_ptr(), py.data_ptr(),
+        px.shape[-1], *(t.data_ptr() for t in totals), tflag.data_ptr(),
+        *(b.data_ptr() for b in buckets), bflag.data_ptr(), bchunk.data_ptr(), width,
+        curve.base.n_limbs, words.ctypes.data, n0, beta, has_a, a_words.ctypes.data,
+        _const_words(curve, 1).ctypes.data, build.stream_ptr(keys),
+    )
+    build.check(code, "K9 fold_madd")
+    K9.launches += 1
+    return totals, tflag, buckets, bflag, bchunk

@@ -1,18 +1,26 @@
 """Multi-scalar multiplication: bucket method on sorted digit keys.
 
 Port of `openzl_tpu/ops/msm.py` (`msm`, `msm_multi`, `fixed_base_msm`).
-Only the group element is bit-exact with the reference; the bucket method
-is this module's own, and every group operation goes through kernels K3
-(add, mixed add) and K4 (double):
+Only the group element is bit-exact with the reference. The bucket totals
+follow the reference's segment-total pipeline (`_bucket_totals_fast`,
+msm.py:205-407), and every group operation goes through kernels K3 (add,
+mixed add), K4 (double) and K9 (the sorted-chunk fold):
 
   1. normalize the points (Z in {0, 1}); one batched inversion;
   2. c-bit digits of every window; each (set, window, nonzero digit,
      live point) becomes one entry keyed (set, window, digit), and one
-     `torch.sort` on the int64 keys groups each bucket's points;
-  3. bucket sums by pairwise segmented reduction: every pass adds each
-     even-ranked entry of a segment to its successor (madd on the first
-     pass, whose operands are all normalized; add after) and compacts, so a
-     bucket of k points needs ceil(log2 k) passes and exactly k - 1 adds;
+     `torch.sort` on the int64 keys groups each bucket's points. The keys
+     are int64, so the reference's PARTS split of an over-long 32-bit
+     packed key (msm.py:253-265) is not needed;
+  3. bucket totals: K9 folds chunks of r consecutive sorted entries (r up
+     to 32, as the reference picks it; the tail is padded with a dump key)
+     with mixed adds, gathering each entry's point by index, and writes the
+     prefix of every segment tail into its bucket slot; a lifted segmented
+     scan over the chunk totals (K3) gives each chunk's exclusive offset,
+     and one bucket-width gather and lifted K3 combine add the offsets of
+     buckets whose segment started in an earlier chunk, into a dense
+     (S W 2^c) bucket array. Nothing between the sort and step 4 reads a
+     value back to the host;
   4. window sums sum_d d B_d by binary decomposition: for each bit k the
      buckets whose digit has bit k set are tree-reduced, then
      sum_k 2^k T_k by doubling;
@@ -31,6 +39,8 @@ from ..curves.spec import CurveSpec
 from ..fields.spec import LIMB_BITS
 from ..curves import jacobian as jac
 from ..curves.jacobian import JPoint
+from . import ec_kernel
+from .scan_utils import inclusive_scan
 
 
 def default_window_bits(n: int, total_bits: int = 254) -> int:
@@ -65,32 +75,68 @@ def _digits(scalars: torch.Tensor, c: int, n_windows: int) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _bucket_sums(curve: CurveSpec, pts: JPoint, keys: torch.Tensor, pidx: torch.Tensor):
-    """Sum the (normalized) points pidx grouped by the sorted keys ->
-    (unique keys, JPoint of their sums)."""
-    P = jac.take(pts, pidx)
-    first = True
-    while keys.shape[0] > 1:
-        same = keys[1:] == keys[:-1]
-        if not bool(same.any()):
-            break
-        L = keys.shape[0]
-        # rank within the segment: keys are sorted, so a segment starts at
-        # the first index of its key; one binary search per entry, where
-        # torch's cummax over start flags is a slow scan on the card
-        rank = torch.arange(L, device=keys.device) - torch.searchsorted(keys, keys)
-        a_idx = torch.nonzero(same & (rank[:-1] % 2 == 0)).reshape(-1)
-        b_idx = a_idx + 1
-        A, B = jac.take(P, a_idx), jac.take(P, b_idx)
-        S = jac.madd(curve, A, B) if first else jac.add(curve, A, B)
-        for coord, v in zip(P, S):
-            coord[..., a_idx] = v
-        keep = torch.ones(L, dtype=torch.bool, device=keys.device)
-        keep[b_idx] = False
-        keys = keys[keep]
-        P = jac.take(P, keep)
-        first = False
-    return keys, P
+def _chunk_len(n_entries: int) -> int:
+    """Entries per fold chunk, as the reference picks r (msm.py:277-280):
+    32, halved while that leaves fewer than 8 chunks."""
+    r = 32
+    while r > 1 and -(-n_entries // r) < 8:
+        r //= 2
+    return r
+
+
+def fold_inputs(curve: CurveSpec, jobs, window_bits: Optional[int] = None, n_bits: Optional[int] = None):
+    """Steps 1-2 of `msm_sets`: (normalized points, sorted keys and point
+    indices padded to a multiple of r with the dump key S W 2^c, r, c, W)."""
+    F = jac.field_ops(curve)
+    dev = jobs[0][0].device
+    total_bits = n_bits or curve.scalar.bits
+    c = window_bits or default_window_bits(max(1, max(s.shape[1] for s, _ in jobs)), total_bits)
+    W = -(-total_bits // c)
+
+    pts = jac.normalize(curve, jac.concat([p for _, p in jobs]))
+    live = ~F.is_zero(pts.z)
+    keys, pidx = [], []
+    off = 0
+    for s, (scalars, _) in enumerate(jobs):
+        n = scalars.shape[1]
+        digits = _digits(scalars, c, W)  # (W, n)
+        grp = torch.arange(s * W, (s + 1) * W, device=dev).reshape(W, 1)
+        idx = torch.arange(off, off + n, device=dev).expand(W, n)
+        sel = (digits != 0) & live[off : off + n]
+        keys.append(((grp << c) + digits)[sel])
+        pidx.append(idx[sel])
+        off += n
+    keys, order = torch.sort(torch.cat(keys))
+    pidx = torch.cat(pidx)[order]
+    r = _chunk_len(keys.shape[0])
+    pad = -keys.shape[0] % r
+    keys = torch.cat([keys, keys.new_full((pad,), len(jobs) * W << c)])
+    pidx = torch.cat([pidx, pidx.new_zeros(pad)])
+    return pts, keys, pidx, r, c, W
+
+
+def _bucket_totals(curve: CurveSpec, pts: JPoint, keys, pidx, r: int, n_buckets: int) -> JPoint:
+    """Step 3: the (n_buckets,) bucket sums of the sorted, padded entries."""
+    dev = keys.device
+    if keys.shape[0] == 0:
+        return jac.identity(curve, (n_buckets,), dev)
+    totals, tflag, bv, bflag, bchunk = ec_kernel.fold_madd(curve, pts, keys, pidx, r, n_buckets + 1)
+    l = tflag.shape[0]
+
+    def lifted(a, b):
+        """(value, segment-started flag) monoid: b's value alone once b's
+        segment has started, else a + b."""
+        merged = jac.add(curve, JPoint(*a[:3]), JPoint(*b[:3]))
+        return (*jac.select(b[3], JPoint(*b[:3]), merged), a[3] | b[3])
+
+    def pad(k):
+        return (*jac.identity(curve, (k,), dev), torch.zeros(k, dtype=torch.bool, device=dev))
+
+    incl = inclusive_scan(lifted, (*totals, tflag), pad)
+    excl = tuple(torch.cat([p, v[..., : l - 1]], dim=-1) for p, v in zip(pad(1), incl))
+    offsets = tuple(v[..., bchunk] for v in excl)
+    total = lifted(offsets, (*bv, bflag))
+    return JPoint(*(v[..., :n_buckets] for v in total[:3]))
 
 
 def _tree_sum(curve: CurveSpec, P: JPoint) -> JPoint:
@@ -126,30 +172,8 @@ def msm_sets(
     kernel launches and one Horner chain serve every job."""
     F = jac.field_ops(curve)
     S = len(jobs)
-    dev = jobs[0][0].device
-    total_bits = n_bits or curve.scalar.bits
-    c = window_bits or default_window_bits(max(1, max(s.shape[1] for s, _ in jobs)), total_bits)
-    W = -(-total_bits // c)
-
-    pts = jac.normalize(curve, jac.concat([p for _, p in jobs]))
-    live = ~F.is_zero(pts.z)
-    keys, pidx = [], []
-    off = 0
-    for s, (scalars, _) in enumerate(jobs):
-        n = scalars.shape[1]
-        digits = _digits(scalars, c, W)  # (W, n)
-        grp = torch.arange(s * W, (s + 1) * W, device=dev).reshape(W, 1)
-        idx = torch.arange(off, off + n, device=dev).expand(W, n)
-        sel = (digits != 0) & live[off : off + n]
-        keys.append(((grp << c) + digits)[sel])
-        pidx.append(idx[sel])
-        off += n
-    keys, order = torch.sort(torch.cat(keys))
-    ukeys, sums = _bucket_sums(curve, pts, keys, torch.cat(pidx)[order])
-
-    dense = jac.identity(curve, (S * W << c,), dev)
-    for coord, v in zip(dense, sums):
-        coord[..., ukeys] = v
+    pts, keys, pidx, r, c, W = fold_inputs(curve, jobs, window_bits, n_bits)
+    dense = _bucket_totals(curve, pts, keys, pidx, r, S * W << c)
     head = tuple(dense.z.shape[: F.value_ndim])
     buckets = JPoint(*(v.reshape(head + (S * W, 1 << c)) for v in dense))
     win = _weighted_sums(curve, buckets, c)  # (..., S W)

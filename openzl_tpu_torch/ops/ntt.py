@@ -1,18 +1,27 @@
 """Radix-2 NTT / iNTT over prime scalar fields, bit-exact with ark-poly.
 
-Port of `openzl_tpu/ops/ntt.py` (`ntt`, `intt`, `coset_ntt`, `coset_intt`).
-Conventions (arkworks v0.3): the domain of size N = 2^k uses
-group_gen = two_adic_root^(2^(TWO_ADICITY - k)); `ntt` evaluates at
-w^0 .. w^(N-1) in natural order; `intt` scales by 1/N; the coset is g H
-with g the field's multiplicative generator.
+Port of `openzl_tpu/ops/ntt.py` (`ntt`, `intt`, `coset_ntt`, `coset_intt`,
+`fourstep_transform`). Conventions (arkworks v0.3): the domain of size
+N = 2^k uses group_gen = two_adic_root^(2^(TWO_ADICITY - k)); `ntt`
+evaluates at w^0 .. w^(N-1) in natural order; `intt` scales by 1/N; the
+coset is g H with g the field's multiplicative generator.
 
-Design: a four-step (Bailey) decomposition N = n1 x n2 applied recursively.
-Each level runs an n1-point transform over the columns in ONE launch of
-kernel K2 (all DIF stages in shared memory, with the level twiddle
-w_N^(j1 k2) fused as its post-multiply), un-reverses the rows with one
-gather, transposes, and recurses on the rows. The 1/N scale and the coset
-scales are kernel K1 products. Level sizes are balanced powers of two of at
-most K2's 64 points (2^17 = 64 x 64 x 32).
+Two routes, split at the reference's `_FOURSTEP_MIN` = 2^13:
+
+  * below it, the per-stage route `_ntt_core`: log2(N) constant-geometry
+    (Pease) decimation-in-frequency stages, each ONE launch of kernel K8
+    (pairs x[k], x[k + N/2], writes lo to slot 2k and hi to slot 2k + 1,
+    twiddle w^(k & ~(2^s - 1)) read from the root table by index), then
+    one bit-reversal gather;
+  * from it on, `fourstep_transform`: a four-step (Bailey) decomposition
+    N = n1 x n2 applied recursively. Each level runs an n1-point transform
+    over the columns in ONE launch of kernel K2 (all DIF stages in shared
+    memory, with the level twiddle w_N^(j1 k2) fused as its post-multiply),
+    un-reverses the rows with one gather, transposes, and recurses on the
+    rows. Level sizes are balanced powers of two of at most K2's 64 points
+    (2^17 = 64 x 64 x 32).
+
+The 1/N scale and the coset scales are kernel K1 products.
 """
 
 from __future__ import annotations
@@ -104,7 +113,7 @@ def _build_node(R, n, levels, nt, c):
 
 
 @functools.lru_cache(maxsize=32)
-def _plan(spec: FieldSpec, log_n: int, inverse: bool, batch: int, dev: torch.device):
+def _fourstep_plan(spec: FieldSpec, log_n: int, inverse: bool, batch: int, dev: torch.device):
     n = 1 << log_n
     R = _root_powers(spec, log_n, inverse, dev)
     node = _build_node(R, n, _levels(log_n), n, batch)
@@ -126,7 +135,8 @@ def _apply_node(spec, x, node):
     return _apply_node(spec, w, inner).reshape(n, nt, c)
 
 
-def _transform(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+def fourstep_transform(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The four-step route at any power-of-two size (n_limbs, N, *batch)."""
     n_l, N = x.shape[0], x.shape[1]
     if N & (N - 1):
         raise ValueError("domain size must be a power of two")
@@ -134,11 +144,50 @@ def _transform(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
         return x
     batch = x.shape[2:]
     b = int(np.prod(batch)) if batch else 1
-    node, n_inv = _plan(spec, N.bit_length() - 1, inverse, b, x.device)
+    node, n_inv = _fourstep_plan(spec, N.bit_length() - 1, inverse, b, x.device)
     out = _apply_node(spec, x.reshape(n_l, N, b), node)
     if inverse:
         out = ntt_kernel.mont_scale(spec, out.contiguous(), n_inv)
     return out.reshape(x.shape)
+
+
+#: below this size the per-stage route runs (the reference's threshold)
+_FOURSTEP_MIN = 1 << 13
+
+
+@functools.lru_cache(maxsize=32)
+def _plan(spec: FieldSpec, log_n: int, inverse: bool, dev: torch.device):
+    """(bit-reversal index, root table W[j] = w^j for j < N/2 as (n_limbs,
+    N/2) Montgomery limbs, n^-1) of the per-stage route."""
+    n = 1 << log_n
+    rev = torch.as_tensor(_bitrev(n), device=dev)
+    table = _root_powers(spec, log_n, inverse, dev)[:, : n // 2].contiguous()
+    n_inv = limb.tensor(limb.pack_mont(spec, pow(n, -1, spec.modulus)), dev)
+    return rev, table, n_inv
+
+
+def _ntt_core(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Per-stage route: log2(N) Pease DIF stages (one K8 launch each), one
+    gather into natural order, and the 1/N scale (K1) for the inverse."""
+    N = x.shape[1]
+    if N == 1:
+        return x
+    rev, table, n_inv = _plan(spec, N.bit_length() - 1, inverse, x.device)
+    for s in range(N.bit_length() - 1):
+        x = ntt_kernel.stage(spec, x, table, s)
+    x = x[:, rev]
+    if inverse:
+        x = ntt_kernel.mont_scale(spec, x.contiguous(), n_inv)
+    return x
+
+
+def _transform(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    N = x.shape[1]
+    if N & (N - 1):
+        raise ValueError("domain size must be a power of two")
+    if N < _FOURSTEP_MIN:
+        return _ntt_core(spec, x, inverse)
+    return fourstep_transform(spec, x, inverse)
 
 
 def ntt(spec: FieldSpec, coeffs: torch.Tensor) -> torch.Tensor:

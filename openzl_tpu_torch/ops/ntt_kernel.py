@@ -1,4 +1,5 @@
-"""Kernels K1 (elementwise Montgomery product) and K2 (batched small NTT).
+"""Kernels K1 (elementwise Montgomery product), K2 (batched small NTT) and
+K8 (radix-2 butterfly stage).
 
 Port of `openzl_tpu/ops/ntt_kernel.py`. The CUDA sources are
 `openzl_tpu_torch/csrc/ntt_kernel.cu` (design notes there); this module
@@ -28,6 +29,11 @@ K2 = build.KernelInfo(
     name="small_ntt",
     source="openzl_tpu_torch/csrc/ntt_kernel.cu",
     replaces="openzl_tpu/ops/ntt_kernel.py:160",
+)
+K8 = build.KernelInfo(
+    name="butterfly",
+    source="openzl_tpu_torch/csrc/ntt_kernel.cu",
+    replaces="openzl_tpu/ops/ntt_kernel.py:44",
 )
 
 #: largest transform one K2 launch takes (the four-step NTT splits
@@ -212,3 +218,77 @@ def small_ntt(spec: FieldSpec, x, stage_tw, post_tw=None):
     K2.launches += 1
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# K8: radix-2 butterfly, one whole Pease stage per launch
+# ---------------------------------------------------------------------------
+
+
+def butterfly_plain(spec: FieldSpec, u, t, tw):
+    """Plain torch K8: (u + t, (u - t) tw), tw broadcasting."""
+    return limb.add(spec, u, t), mont_mul_plain(spec, limb.sub(spec, u, t), tw)
+
+
+def _launch_butterfly(spec, u_ptr, t_ptr, in_ls, tw, mask, lo_ptr, hi_ptr, out_ls, out_ks, H, B, like):
+    words, n0 = word_consts(spec)
+    code = build.lib().ozl_butterfly(
+        u_ptr, t_ptr, in_ls, tw.data_ptr(), tw.shape[1], mask, lo_ptr, hi_ptr, out_ls, out_ks,
+        H, B, spec.n_limbs, words.ctypes.data, n0, build.stream_ptr(like),
+    )
+    build.check(code, "K8 butterfly")
+    K8.launches += 1
+
+
+def butterfly(spec: FieldSpec, u, t, tw):
+    """(u + t, (u - t) tw) in Montgomery form, canonical in [0, p); u, t and
+    tw of one shape (n_limbs, *batch)."""
+    if not u.shape == t.shape == tw.shape:
+        raise ValueError(f"butterfly shapes differ: {tuple(u.shape)}, {tuple(t.shape)}, {tuple(tw.shape)}")
+    if device_kind(u, t, tw) == "cpu":
+        return butterfly_plain(spec, u, t, tw)
+    u, t, tw = (v.contiguous() for v in (u, t, tw))
+    _check_cuda(spec, u, t, tw)
+    lo, hi = torch.empty_like(u), torch.empty_like(u)
+    H = u[0].numel()
+    tw = tw.reshape(spec.n_limbs, H)
+    _launch_butterfly(spec, u.data_ptr(), t.data_ptr(), H, tw, -1, lo.data_ptr(), hi.data_ptr(), H, 1, H, 1, u)
+    return lo, hi
+
+
+def _stage_mask(s: int) -> int:
+    """Twiddle index mask of stage s: e = k & ~(2^s - 1)."""
+    return ~((1 << s) - 1)
+
+
+def stage_plain(spec: FieldSpec, x, table, s: int):
+    """Plain torch K8 stage: x (n_limbs, N, *batch); pairs (x[k], x[k + N/2])
+    with the twiddle table[k & ~(2^s - 1)] and interleaves lo to slot 2k,
+    hi to slot 2k + 1."""
+    n, N = x.shape[0], x.shape[1]
+    H = N // 2
+    e = torch.arange(H, device=x.device) & _stage_mask(s)
+    tw = table[:, e].reshape((n, H) + (1,) * (x.ndim - 2))
+    lo, hi = butterfly_plain(spec, x[:, :H], x[:, H:], tw)
+    return torch.stack([lo, hi], dim=2).reshape(x.shape)
+
+
+def stage(spec: FieldSpec, x, table, s: int):
+    """One constant-geometry DIF stage s of an N-point transform along axis 1
+    of x (n_limbs, N, *batch) with the root table (n_limbs, N/2) of
+    W[j] = w^j: one K8 launch on the card."""
+    if device_kind(x, table) == "cpu":
+        return stage_plain(spec, x, table, s)
+    x = x.contiguous()
+    _check_cuda(spec, x, table)
+    N = x.shape[1]
+    H, B = N // 2, x[0, 0].numel()
+    if N < 2 or N & (N - 1) or table.shape != (spec.n_limbs, H):
+        raise ValueError(f"stage: x {tuple(x.shape)}, table {tuple(table.shape)}")
+    out = torch.empty_like(x)
+    ls, word = N * B, x.element_size()
+    _launch_butterfly(
+        spec, x.data_ptr(), x.data_ptr() + H * B * word, ls, table, _stage_mask(s),
+        out.data_ptr(), out.data_ptr() + B * word, ls, 2 * B, H, B, x,
+    )
+    return out

@@ -121,11 +121,18 @@ _SIGNATURES = {
     "ozl_mont_mul": [_VP, _VP, _VP, _I64, _I64, _I64, _I, _VP, _U32, _VP],
     # (out, x, stage_tw, post_tw|0, M, lanes, n_limbs, p, n0, stream)
     "ozl_small_ntt": [_VP, _VP, _VP, _VP, _I, _I64, _I, _VP, _U32, _VP],
+    # (u, t, in_ls, tw, tw_ls, mask, lo, hi, out_ls, out_ks, H, B, n_limbs,
+    #  p, n0, stream)
+    "ozl_butterfly": [_VP, _VP, _I64, _VP, _I64, _I64, _VP, _VP, _I64, _I64, _I64, _I64, _I, _VP, _U32, _VP],
     # (mixed, ext, x1, y1, z1, x2, y2, z2, x3, y3, z3, N, n_limbs, p, n0,
     #  beta, has_a, a_words, stream)
     "ozl_ec_add": [_I, _I] + [_VP] * 9 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],
     # (ext, x1, y1, z1, x3, y3, z3, N, n_limbs, p, n0, beta, has_a, a, stream)
     "ozl_ec_dbl": [_I] + [_VP] * 6 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],
+    # (ext, keys, pidx, l, r, px, py, n_pts, tx, ty, tz, tflag, bx, by, bz,
+    #  bflag, bchunk, width, n_limbs, p, n0, beta, has_a, a, one, stream)
+    "ozl_fold_madd": [_I, _VP, _VP, _I64, _I, _VP, _VP, _I64] + [_VP] * 9
+    + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP, _VP],
     # (out, state, consts, B, width, full_rounds, partial_rounds, n_limbs,
     #  p, n0, stream)
     "ozl_poseidon_permute": [_VP] * 3 + [_I64, _I, _I, _I, _I, _VP, _U32, _VP],

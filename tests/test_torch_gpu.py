@@ -25,6 +25,7 @@ from openzl_tpu_torch.curves.spec import BN254_G1, BN254_G2
 from openzl_tpu_torch.fields import limb
 from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
 from openzl_tpu_torch.ops import ec_kernel, msm, ntt, ntt_kernel, poseidon2_kernel, poseidon_kernel
+from openzl_tpu_torch.proof_systems import BN254, KZG
 from openzl_tpu_torch.ref import curve as ref
 
 pytestmark = pytest.mark.gpu
@@ -96,6 +97,48 @@ def test_msm_matches_cpu(cuda, curve):
     cpu = msm.msm(curve, limb.tensor(scalars), jac.from_affine_ints(curve, pts))
     gpu = msm.msm(curve, limb.tensor(scalars, cuda), jac.from_affine_ints(curve, pts, cuda))
     assert jac.to_affine_ints(curve, gpu) == jac.to_affine_ints(curve, cpu)
+
+
+def test_k8_kernel_and_stage_route_match(cuda):
+    spec = BN254_FR
+    x = limb.to_mont(spec, _field(spec, 4 * 64, 23)).reshape(spec.n_limbs, 64, 4).to(cuda)
+    _, table, _ = ntt._plan(spec, 6, False, cuda)
+    for s in range(6):
+        assert torch.equal(ntt_kernel.stage(spec, x, table, s), ntt_kernel.stage_plain(spec, x, table, s))
+    u, t, w = x[:, :32], x[:, 32:], torch.roll(x[:, :32], 1, dims=1)
+    got, want = ntt_kernel.butterfly(spec, u, t, w), ntt_kernel.butterfly_plain(spec, u, t, w)
+    assert all(torch.equal(g, e) for g, e in zip(got, want))
+    for fn in (ntt.ntt, ntt.intt, ntt.coset_ntt, ntt.coset_intt):
+        assert torch.equal(fn(spec, x).cpu(), fn(spec, x.cpu())), fn.__name__
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
+def test_k9_kernel_matches_plain(cuda, curve):
+    pts, _ = _points(curve, 200, 29)
+    pts[7] = pts[8]  # a repeated point: P = Q inside a bucket
+    rng = random.Random(30)
+    scalars = limb.tensor(limb.pack(curve.scalar, [rng.randrange(1 << 12) for _ in pts]), cuda)
+    P, keys, pidx, r, c, W = msm.fold_inputs(curve, [(scalars, jac.from_affine_ints(curve, pts, cuda))], 4, 12)
+    width = (W << c) + 1
+    got = ec_kernel.fold_madd(curve, P, keys, pidx, r, width)
+    want = ec_kernel.fold_madd_plain(curve, P, keys, pidx, r, width)
+    for g, w in zip(got, want):
+        for a, b in zip(*((v,) if torch.is_tensor(v) else v for v in (g, w))):
+            assert torch.equal(a, b)
+
+
+def test_kzg_on_cuda_matches_cpu(cuda):
+    gpu, cpu = KZG(BN254, backend="device", device=cuda), KZG(BN254, backend="device", device="cpu")
+    params, params_cpu = gpu.setup(40, random.Random(31)), cpu.setup(40, random.Random(31))
+    assert params.to_bytes() == params_cpu.to_bytes()
+    rng = random.Random(32)
+    coeffs = [rng.randrange(BN254.r) for _ in range(41)]
+    C = gpu.commit(params, coeffs)
+    assert C == cpu.commit(params_cpu, coeffs)
+    z = rng.randrange(BN254.r)
+    v, w = gpu.open(params, coeffs, z)
+    assert (v, w) == cpu.open(params_cpu, coeffs, z)
+    assert gpu.verify(params, C, z, v, w)
 
 
 def _states(spec, n, seed, device):

@@ -92,3 +92,35 @@ def test_fixed_base_msm_matches_oracle(curve):
 def test_default_window_bits():
     assert msm.default_window_bits(1 << 17) == 11
     assert msm.default_window_bits(1 << 20) == 15
+
+
+def test_msm_bucket_across_chunks_matches_oracle():
+    """80 of 100 points share digit 5 in the low window: one bucket of
+    about 80 entries spans five or more fold chunks of r = 16, its offsets
+    carried by the lifted scan over the chunk totals; identities and
+    repeats included."""
+    curve = BN254_G1
+    rng = random.Random(13)
+    _, points = _case(curve, 100, 13)
+    scalars = [5] * 80 + [rng.randrange(1 << 8) for _ in range(20)]
+    P = jac.from_affine_ints(curve, points)
+    assert msm.fold_inputs(curve, [(_scalars(curve, scalars), P)], 4, 8)[3] == 16
+    got = msm.msm(curve, _scalars(curve, scalars), P, window_bits=4, n_bits=8)
+    assert jac.to_affine_ints(curve, got) == ref.msm(curve, scalars, points)
+
+
+def test_msm_g2_short_scalars_and_three_sets_match_oracle():
+    """The fold over Fq2 (G2), and three G1 sets of different lengths in one
+    `msm_sets` pipeline, with 16-bit scalars (a short Horner chain)."""
+    rng = random.Random(14)
+    scalars, points = _case(BN254_G2, 24, 14, bits=16)
+    got = msm.msm(BN254_G2, _scalars(BN254_G2, scalars), jac.from_affine_ints(BN254_G2, points), n_bits=16)
+    assert jac.to_affine_ints(BN254_G2, got) == ref.msm(BN254_G2, scalars, points)
+    curve = BN254_G1
+    jobs, want = [], []
+    for n in (40, 17, 64):
+        s, pts = _case(curve, n, 15 + n, bits=16)
+        s[rng.randrange(n)] = s[0]  # a shared digit across points
+        jobs.append((_scalars(curve, s), jac.from_affine_ints(curve, pts)))
+        want.append(ref.msm(curve, s, pts))
+    assert jac.to_affine_ints(curve, msm.msm_sets(curve, jobs, window_bits=4, n_bits=16)) == want

@@ -1,8 +1,9 @@
 """The port stands alone: in a fresh interpreter whose import system refuses
 `jax`, `jaxlib` and the JAX package `openzl_tpu`, import every module of
-`openzl_tpu_torch`, run the 1-link Groth16 slice, a Poseidon2 hash and a
-2^3-leaf Merkle build with path checks on the CPU, and check that none of
-the blocked modules was loaded."""
+`openzl_tpu_torch`, run the 1-link Groth16 slice, a Poseidon2 hash, a
+2^3-leaf Merkle build with path checks, a device-backend KZG commit (held
+against the host backend) and a `DensePoly` NTT product on the CPU, and
+check that none of the blocked modules was loaded."""
 
 import os
 import pathlib
@@ -65,6 +66,17 @@ SCRIPT = textwrap.dedent(
         limb.tensor(np.stack([q.inner_path for q in paths], 2)), np.arange(8),
     )
     assert bool(ok.all())
+
+    from openzl_tpu_torch.ops.poly import DensePoly
+    from openzl_tpu_torch.proof_systems import KZG
+
+    kzg = KZG(BN254, backend="device", device="cpu")
+    kp = kzg.setup(3, random.Random(4))
+    coeffs = [rng.randrange(BN254.r) for _ in range(4)]
+    host = KZG(BN254, backend="host")
+    assert kzg.commit(kp, coeffs) == host.commit(host.setup(3, random.Random(4)), coeffs)
+    a, b = (DensePoly.rand(BN254_FR, 300, rng, device="cpu") for _ in range(2))
+    assert (a * b).evaluate(7) == a.evaluate(7) * b.evaluate(7) % BN254_FR.modulus
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded

@@ -1,10 +1,13 @@
-"""Kernel K2's plain version and the port's NTTs against the JAX package.
+"""Kernels K2's and K8's plain versions and the port's NTTs against the JAX
+package.
 
 K2 (plain) is held against `openzl_tpu.ops.ntt_kernel.small_ntt` in Pallas
-interpret mode on BabyBear, as tests/test_ntt_kernel.py runs it; `ntt`,
+interpret mode on BabyBear, K8 (plain) against `ntt_kernel.butterfly` in
+interpret mode on BN254 Fr, as tests/test_ntt_kernel.py runs them; `ntt`,
 `intt`, `coset_ntt` and `coset_intt` against `openzl_tpu.ops.ntt` on BN254
-Fr at 2^8 to 2^10. Inputs come from numpy.random.default_rng(seed); every
-comparison is exact equality (tolerance 0)."""
+Fr at 2^3 to 2^10, through both routes (per-stage below 2^13, and
+`fourstep_transform`). Inputs come from numpy.random.default_rng(seed);
+every comparison is exact equality (tolerance 0)."""
 
 import os
 
@@ -107,6 +110,55 @@ def test_transform_batch_axis_matches_reference():
     got = ntt.ntt(spec, limb.tensor(x))
     want = ref_ntt.ntt(spec, jnp.asarray(x))
     assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(want))
+
+
+def test_k8_plain_matches_pallas_interpret():
+    """butterfly_plain against the reference's fused butterfly over a batch
+    axis, including the zero and p - 1 rows."""
+    spec = BN254_FR
+    u, t, w = (_rand_mont(spec, (7, 3), seed) for seed in (31, 32, 33))
+    u[:, 0, 0] = 0
+    t[:, 1, 0] = ref_limb.pack_mont(spec, spec.modulus - 1)
+    want = ref_ntt_kernel.butterfly(spec, *(jnp.asarray(v) for v in (u, t, w)), interpret=True)
+    got = ntt_kernel.butterfly(spec, *(limb.tensor(v) for v in (u, t, w)))
+    for g, e in zip(got, want):
+        assert np.array_equal(g.numpy().astype(np.uint32), np.asarray(e))
+
+
+def test_k8_stage_matches_butterflies():
+    """One Pease stage on a batched x: lo and hi of pair k land in slots 2k
+    and 2k + 1, with the twiddle W[k & ~(2^s - 1)] broadcast over the batch."""
+    spec = BN254_FR
+    log_n, B = 4, 3
+    x = limb.tensor(_rand_mont(spec, (1 << log_n, B), 41))
+    table = limb.tensor(_roots(spec, log_n)[:, : (1 << log_n) // 2])
+    H = (1 << log_n) // 2
+    for s in range(log_n):
+        got = ntt_kernel.stage(spec, x, table, s)
+        for k in range(H):
+            tw = table[:, k & ~((1 << s) - 1)].reshape(-1, 1).expand(-1, B)
+            lo, hi = ntt_kernel.butterfly_plain(spec, x[:, k], x[:, k + H], tw)
+            assert torch.equal(got[:, 2 * k], lo) and torch.equal(got[:, 2 * k + 1], hi)
+
+
+@pytest.mark.parametrize("log_n", [3, 6])
+@pytest.mark.parametrize("route", ["stage", "fourstep"])
+def test_routes_match_reference(route, log_n):
+    """Both routes at sizes below the four-step threshold, where the
+    transforms run the per-stage route by default."""
+    spec = BN254_FR
+    x = _rand_mont(spec, (1 << log_n,), 50 + log_n)
+    tx, jx = limb.tensor(x), jnp.asarray(x)
+    for inverse, ref_fn in ((False, ref_ntt.ntt), (True, ref_ntt.intt)):
+        if route == "stage":
+            got = ntt._transform(spec, tx, inverse)
+        else:
+            got = ntt.fourstep_transform(spec, tx, inverse)
+        assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(ref_fn(spec, jx))), inverse
+    if route == "stage":
+        for port_fn, ref_fn in ((ntt.coset_ntt, ref_ntt.coset_ntt), (ntt.coset_intt, ref_ntt.coset_intt)):
+            got = port_fn(spec, tx)
+            assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(ref_fn(spec, jx))), port_fn.__name__
 
 
 @pytest.mark.parametrize("inverse", [False, True])
