@@ -5,13 +5,16 @@ the reference's 2-limb toy curve (a 16-limb jnp fold takes about 30 s to
 compile on a CPU; the port's plain code takes any curve spec). Chunks of r = 4,
 l = 8, with a duplicated point (P = Q), a point and its negation, a segment
 crossing three chunks, a chunk with no start and E = 30 entries, padded to
-32 with the dump key. Points come from seeded `random.Random`; every
-comparison is exact (tolerance 0)."""
+32 with the dump key. `msm._bucket_totals` (the fold, the lifted scan of
+the chunk totals and the bucket-width combine) is also held against the
+oracle's per-key sums at chunk lengths r = 1 to 16. Points come from seeded
+`random.Random`; every comparison is exact (tolerance 0)."""
 
 import os
 import random
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -21,7 +24,7 @@ from openzl_tpu.curves.spec import toy_curve
 from openzl_tpu.ops import msm as ref_msm
 from openzl_tpu.ref import curve as ref
 from openzl_tpu_torch.curves import jacobian as jac
-from openzl_tpu_torch.ops import ec_kernel
+from openzl_tpu_torch.ops import ec_kernel, msm
 
 # xdist workers share the machine's cores: one torch thread each, since
 # torch's default of one thread per core oversubscribes them many times
@@ -118,3 +121,29 @@ def test_fold_dispatch_takes_the_plain_version_on_cpu():
     for g, w in zip(got, want):
         for a, b in zip(*((v,) if torch.is_tensor(v) else v for v in (g, w))):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 8, 16])
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_bucket_totals_match_oracle_sums(seed, r):
+    """Sorted keys with runs of 0 to 13 entries over 12 buckets, each entry
+    a random one of nine points or the negation of the first, padded with
+    the dump key to a multiple of r: every bucket equals the oracle's sum of
+    its entries (the identity where the run is empty or cancels)."""
+    curve = toy_curve()
+    rng = random.Random(seed)
+    G = ref.generator(curve)
+    pts = [ref.scalar_mul(curve, rng.randrange(1, 1 << 12), G) for _ in range(9)]
+    pts.append(ref.neg(curve, pts[0]))
+    n_buckets = 12
+    keys = [k for k in range(n_buckets) for _ in range(rng.choice((0, 0, 1, 2, 3, 7, 13)))]
+    pidx = [rng.randrange(len(pts)) for _ in keys]
+    pad = -len(keys) % r
+    keys, pidx = keys + [n_buckets] * pad, pidx + [0] * pad
+    P = jac.normalize(curve, jac.from_affine_ints(curve, pts))
+    got = msm._bucket_totals(curve, P, torch.tensor(keys), torch.tensor(pidx), r, n_buckets)
+    want = [None] * n_buckets
+    for k, i in zip(keys, pidx):
+        if k < n_buckets:
+            want[k] = ref.add(curve, want[k], pts[i])
+    assert jac.to_affine_ints(curve, got) == want

@@ -1,7 +1,8 @@
 """The port's MSMs (`msm`, `msm_multi`, `fixed_base_msm`) against the
 Python oracle `openzl_tpu.ref.curve`, compared as affine points (the bucket
-method is the port's own; only the group element must match). Scalars and
-points come from seeded `random.Random`; tolerance 0."""
+method is the port's own; only the group element must match). The window
+sweep runs on the reference's 2-limb toy curve with 12-bit scalars. Scalars
+and points come from seeded `random.Random`; tolerance 0."""
 
 import os
 import random
@@ -9,7 +10,7 @@ import random
 import pytest
 import torch
 
-from openzl_tpu.curves.spec import BN254_G1, BN254_G2
+from openzl_tpu.curves.spec import BN254_G1, BN254_G2, toy_curve
 from openzl_tpu.ref import curve as ref
 from openzl_tpu_torch.curves import jacobian as jac
 from openzl_tpu_torch.fields import limb
@@ -124,3 +125,20 @@ def test_msm_g2_short_scalars_and_three_sets_match_oracle():
         jobs.append((_scalars(curve, s), jac.from_affine_ints(curve, pts)))
         want.append(ref.msm(curve, s, pts))
     assert jac.to_affine_ints(curve, msm.msm_sets(curve, jobs, window_bits=4, n_bits=16)) == want
+
+
+@pytest.mark.parametrize("window_bits", [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12])
+def test_msm_window_sweep_matches_oracle(window_bits):
+    """Window widths from 1 to 12 bits over 12-bit scalars (a last window
+    shorter than the others where c does not divide 12, one window at 12),
+    with zero scalars, an identity point and a repeated point."""
+    curve = toy_curve()
+    rng = random.Random(20 + window_bits)
+    G = ref.generator(curve)
+    scalars = [rng.randrange(1 << 12) for _ in range(24)]
+    scalars[1] = 0
+    points = [ref.scalar_mul(curve, rng.randrange(1, 1 << 12), G) for _ in range(24)]
+    points[3] = None
+    points[5] = points[4]
+    got = msm.msm(curve, _scalars(curve, scalars), jac.from_affine_ints(curve, points), window_bits=window_bits, n_bits=12)
+    assert jac.to_affine_ints(curve, got) == ref.msm(curve, scalars, points)

@@ -6,7 +6,9 @@ interpret mode on BabyBear, K8 (plain) against `ntt_kernel.butterfly` in
 interpret mode on BN254 Fr, as tests/test_ntt_kernel.py runs them; `ntt`,
 `intt`, `coset_ntt` and `coset_intt` against `openzl_tpu.ops.ntt` on BN254
 Fr at 2^3 to 2^10, through both routes (per-stage below 2^13, and
-`fourstep_transform`). Inputs come from numpy.random.default_rng(seed);
+`fourstep_transform`). K8 stages and the per-stage transforms are also
+held against sums over Python ints (no JAX compile) on BN254 Fr,
+BLS12-381 Fr and BabyBear. Inputs come from numpy.random.default_rng(seed);
 every comparison is exact equality (tolerance 0)."""
 
 import os
@@ -18,7 +20,7 @@ import torch
 import jax.numpy as jnp
 
 from openzl_tpu.fields import limb as ref_limb
-from openzl_tpu.fields.spec import BN254_FR, FieldSpec
+from openzl_tpu.fields.spec import BLS12_381_FR, BN254_FR, FieldSpec
 from openzl_tpu.ops import ntt as ref_ntt
 from openzl_tpu.ops import ntt_kernel as ref_ntt_kernel
 from openzl_tpu_torch.fields import limb
@@ -191,3 +193,69 @@ def test_round_trip_and_level_split(log_n):
     assert torch.equal(ntt.intt(spec, ntt.ntt(spec, x)), x)
     levels = ntt._levels(log_n)
     assert sum(levels) == log_n and max(levels) <= 6 and max(levels) - min(levels) <= 1
+
+
+INT_SPECS = {"bn254_fr": BN254_FR, "bls12_381_fr": BLS12_381_FR, "babybear": BABYBEAR}
+
+
+def _ints(spec, x):
+    """Montgomery limbs (a numpy array or a CPU tensor) -> canonical ints."""
+    if torch.is_tensor(x):
+        x = x.numpy().astype(np.uint32)
+    return ref_limb.unpack_mont(spec, np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize("log_n", [1, 2, 3, 5])
+@pytest.mark.parametrize("name", list(INT_SPECS))
+def test_k8_stage_plain_matches_int_oracle(name, log_n):
+    """Every stage s of an (N, 2) input against the DIF stage over Python
+    ints: slot 2k holds x[k] + x[k + N/2] and slot 2k + 1 holds
+    (x[k] - x[k + N/2]) w^(k & ~(2^s - 1)), w the reference's N-th root."""
+    spec = INT_SPECS[name]
+    p, N = spec.modulus, 1 << log_n
+    H = N // 2
+    x = _rand_mont(spec, (N, 2), 60 + log_n)
+    table = np.ascontiguousarray(_roots(spec, log_n)[:, :H])
+    xs, ws = _ints(spec, x), _ints(spec, table)
+    for s in range(log_n):
+        got = _ints(spec, ntt_kernel.stage(spec, limb.tensor(x), limb.tensor(table), s))
+        for k in range(H):
+            w = int(ws[k & ~((1 << s) - 1)])
+            for b in range(2):
+                u, t = int(xs[k, b]), int(xs[k + H, b])
+                assert (int(got[2 * k, b]), int(got[2 * k + 1, b])) == ((u + t) % p, (u - t) * w % p), (s, k, b)
+
+
+def _dft(p, w, xs, scale=1, shift=1):
+    """X_i = scale * sum_j shift^j x_j w^(ij) mod p."""
+    n = len(xs)
+    return [scale * sum(x * pow(shift, j, p) * pow(w, i * j, p) for j, x in enumerate(xs)) % p for i in range(n)]
+
+
+@pytest.mark.parametrize("log_n", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("name", ["bn254_fr", "bls12_381_fr"])
+def test_stage_route_matches_naive_dft(name, log_n):
+    """`ntt`, `intt`, `coset_ntt` and `coset_intt` below the four-step
+    threshold (the per-stage route: K8 stages, then the bit-reversal
+    gather) against O(N^2) sums over Python ints, with the reference's root
+    of unity w and coset generator g."""
+    spec = INT_SPECS[name]
+    p, N = spec.modulus, 1 << log_n
+    w = ref_ntt.group_gen(spec, log_n)
+    w_inv, n_inv = pow(w, -1, p), pow(N, -1, p)
+    g = ref_ntt.GENERATORS[spec.name]
+    g_inv = pow(g, -1, p)
+    x = _rand_mont(spec, (N,), 70 + log_n)
+    xs = [int(v) for v in _ints(spec, x)]
+    tx = limb.tensor(x)
+    want = {
+        ntt.ntt: _dft(p, w, xs),
+        ntt.intt: _dft(p, w_inv, xs, n_inv),
+        ntt.coset_ntt: _dft(p, w, xs, shift=g),
+    }
+    for fn, values in want.items():
+        assert [int(v) for v in _ints(spec, fn(spec, tx))] == values, fn.__name__
+    inv = _dft(p, w_inv, xs, n_inv)
+    assert [int(v) for v in _ints(spec, ntt.coset_intt(spec, tx))] == [
+        v * pow(g_inv, j, p) % p for j, v in enumerate(inv)
+    ]

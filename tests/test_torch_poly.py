@@ -2,8 +2,9 @@
 against the JAX package's `openzl_tpu.ops.poly`, on the CPU. Both sides draw
 their polynomials from `random.Random` with one seed; every comparison is
 exact (coefficient lists of ints). The NTT product runs at small sizes by
-monkeypatching the port's `_NTT_MUL_MIN`; the domain transforms run at 2^3,
-a size the NTT tests already compile in the reference."""
+monkeypatching the port's `_NTT_MUL_MIN`, at degree pairs that give domains
+of 1 to 128 points; the domain transforms run at 2^3, a size the NTT tests
+already compile in the reference."""
 
 import os
 import random
@@ -79,3 +80,20 @@ def test_ntt_product_matches_reference(name, monkeypatch):
     ra, rb = (ref_poly.DensePoly.rand(ref_spec, d, ref_rng) for d in (40, 23))
     monkeypatch.setattr(poly, "_NTT_MUL_MIN", 8)
     assert (a * b).coeffs == (ra * rb).coeffs
+
+
+@pytest.mark.parametrize(
+    "da,db", [(0, 0), (1, 0), (1, 1), (2, 1), (3, 4), (7, 8), (8, 8), (15, 16), (31, 0), (20, 43), (63, 64)]
+)
+@pytest.mark.parametrize("name", list(SPECS))
+def test_ntt_product_degrees_match_reference(name, da, db, monkeypatch):
+    """Every product through the NTT product (`_NTT_MUL_MIN` = 1), at
+    result lengths that are and are not powers of two, against the
+    reference's host schoolbook product of the same coefficients."""
+    spec, ref_spec = SPECS[name]
+    rng = random.Random(1000 * da + db)
+    a, b = (poly.DensePoly.rand(spec, d, rng, device="cpu") for d in (da, db))
+    want = ref_poly.DensePoly(ref_spec, a.coeffs) * ref_poly.DensePoly(ref_spec, b.coeffs)
+    monkeypatch.setattr(poly, "_NTT_MUL_MIN", 1)
+    got = a * b
+    assert (got.degree, got.coeffs) == (da + db, want.coeffs)
