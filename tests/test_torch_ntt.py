@@ -5,8 +5,9 @@ K2 (plain) is held against `openzl_tpu.ops.ntt_kernel.small_ntt` in Pallas
 interpret mode on BabyBear, K8 (plain) against `ntt_kernel.butterfly` in
 interpret mode on BN254 Fr, as tests/test_ntt_kernel.py runs them; `ntt`,
 `intt`, `coset_ntt` and `coset_intt` against `openzl_tpu.ops.ntt` on BN254
-Fr at 2^3 to 2^10, through both routes (per-stage below 2^13, and
-`fourstep_transform`). K8 stages and the per-stage transforms are also
+Fr at 2^3 to 2^10 and on a batch axis, through both routes (per-stage
+below 2^13, and the four-step route, reached by lowering the threshold or
+through `fourstep_transform`). K8 stages and the per-stage transforms are also
 held against sums over Python ints (no JAX compile) on BN254 Fr,
 BLS12-381 Fr and BabyBear. Inputs come from numpy.random.default_rng(seed);
 every comparison is exact equality (tolerance 0)."""
@@ -91,8 +92,16 @@ def test_k2_stage_table_matches_reference_layout():
         assert np.array_equal(port_tw[:, s, :h], ref_tw[:, s, :h])
 
 
+#: `_FOURSTEP_MIN` values that send a transform below 2^13 to each route
+ROUTES = {"stage": ntt._FOURSTEP_MIN, "fourstep": 1}
+
+
 @pytest.mark.parametrize("log_n", [8, 9, 10])
-def test_transforms_match_reference(log_n):
+def test_transforms_match_reference(log_n, monkeypatch):
+    """All four transforms through both routes. At these sizes the
+    four-step route has two levels (level twiddles, transposes and an
+    inner node), as at the prover's 2^17 (three levels)."""
+    assert len(ntt._levels(log_n)) == 2
     spec = BN254_FR
     x = _rand_mont(spec, (1 << log_n,), log_n)
     tx, jx = limb.tensor(x), jnp.asarray(x)
@@ -102,16 +111,23 @@ def test_transforms_match_reference(log_n):
         (ntt.coset_ntt, ref_ntt.coset_ntt),
         (ntt.coset_intt, ref_ntt.coset_intt),
     ):
-        got = port_fn(spec, tx)
-        assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(ref_fn(spec, jx))), port_fn.__name__
+        want = np.asarray(ref_fn(spec, jx))
+        for route, threshold in ROUTES.items():
+            monkeypatch.setattr(ntt, "_FOURSTEP_MIN", threshold)
+            got = port_fn(spec, tx)
+            assert np.array_equal(got.numpy().astype(np.uint32), want), (port_fn.__name__, route)
 
 
-def test_transform_batch_axis_matches_reference():
+def test_transform_batch_axis_matches_reference(monkeypatch):
+    """A trailing batch axis of 3 through both routes (two four-step
+    levels, the inner node carrying n1 x 3 lanes)."""
     spec = BN254_FR
     x = _rand_mont(spec, (256, 3), 11)
-    got = ntt.ntt(spec, limb.tensor(x))
-    want = ref_ntt.ntt(spec, jnp.asarray(x))
-    assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(want))
+    want = np.asarray(ref_ntt.ntt(spec, jnp.asarray(x)))
+    for route, threshold in ROUTES.items():
+        monkeypatch.setattr(ntt, "_FOURSTEP_MIN", threshold)
+        got = ntt.ntt(spec, limb.tensor(x))
+        assert np.array_equal(got.numpy().astype(np.uint32), want), route
 
 
 def test_k8_plain_matches_pallas_interpret():
@@ -175,15 +191,18 @@ def test_plan_tables_match_reference(inverse):
     assert np.array_equal(scales.numpy(), ref_ntt._coset_scales(spec, 1 << log_n, inverse))
 
 
-def test_coset_transforms_batch_axis_match_reference():
+def test_coset_transforms_batch_axis_match_reference(monkeypatch):
     """The batched coset transforms of the prover's h polynomial (u, v and w
-    stacked on a trailing axis of 3)."""
+    stacked on a trailing axis of 3), through both routes."""
     spec = BN254_FR
     x = _rand_mont(spec, (256, 3), 12)
     tx, jx = limb.tensor(x), jnp.asarray(x)
     for port_fn, ref_fn in ((ntt.coset_ntt, ref_ntt.coset_ntt), (ntt.coset_intt, ref_ntt.coset_intt)):
-        got = port_fn(spec, tx)
-        assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(ref_fn(spec, jx))), port_fn.__name__
+        want = np.asarray(ref_fn(spec, jx))
+        for route, threshold in ROUTES.items():
+            monkeypatch.setattr(ntt, "_FOURSTEP_MIN", threshold)
+            got = port_fn(spec, tx)
+            assert np.array_equal(got.numpy().astype(np.uint32), want), (port_fn.__name__, route)
 
 
 @pytest.mark.parametrize("log_n", [1, 4, 13])
