@@ -18,13 +18,17 @@ Phases:
               constraints): compile once, answer 3 prove requests (fresh
               witness, fresh r and s), verify each, reject a fuzzed input;
               launch counters zeroed before the requests and read after
-              (every Groth16 kernel, the fold K9 included, must launch);
+              (every Groth16 kernel, the fold K9 included, must launch;
+              K1, K3 and K4 launches by batch width are printed);
               then one more request under torch.profiler (device busy
               share, device time by kernel, host launches and syncs;
               `openzl_tpu_torch.utils.profile`)
   6. hash     K5, K6 and K7 against their plain versions at batch 2^16
-              (BN254 Fr, width 3, bit-exact) and K5 on the BLS12-381 Fr
-              golden vector of `tests/vectors/`; then, with the launch
+              (BN254 Fr, width 3, bit-exact), both K5 variants (wide and
+              split) at B = 1, 2, 3, 127, 128, 129, 2047, 2048, 16895,
+              16896, 16897 and 2^16 and around the wrapper's switch
+              (`SPLIT_MAX_B`), and K5 on the BLS12-381 Fr golden vector
+              of `tests/vectors/`; then, with the launch
               counters zeroed before and read after, the slice: Poseidon,
               optimized Poseidon and Poseidon2 throughput at batch 2^16
               through `permute`, both hashes, the Merkle h20 bulk builds of
@@ -37,7 +41,9 @@ Phases:
   7. kzg      K8 against its plain version on one stage of 2^12 BN254 Fr
               points (batch 1 and 4), both NTT routes at 2^10 and 2^12, K9
               against its plain version on the G1 fold of a 2^16-point
-              commit and the Fq2 fold of phase 5's B2 MSM (bit-exact); then,
+              commit, the Fq2 fold of phase 5's B2 MSM and a fold at the
+              smallest chunk length r = 1 (bit-exact), with the cost of
+              the points' point-major copy; then,
               with the launch counters zeroed before and read after, the
               slice: `KZG(BN254, backend="device")` setup of degree
               2^16 - 1, commit, open, verify (and reject v + 1),
@@ -381,7 +387,7 @@ def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
         return g16.prove_assigned(pk, calc.evaluate_limbs([digest], witness), rng)
 
     for k in all_kernels:
-        k.launches = 0
+        k.reset()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     walls = []
@@ -400,6 +406,10 @@ def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
     launches = {k.name: k.launches for k in kernels}
     peak = f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB" if cuda else "not measured"
     log(f"[slice] launches during the {proofs} proves: {launches}; peak device memory {peak}")
+    for k in kernels:
+        if k.name in ("mont_mul", "ec_add", "ec_dbl"):
+            log(f"[slice] {k.name} launches by batch (rounded up to a power of two): "
+                + ", ".join(f"{w}: {n}" for w, n in sorted(k.by_width.items())))
     before = {k.name: k.launches for k in kernels}
     report = prof.profile(request)
     during = {k.name: k.launches - before[k.name] for k in kernels}
@@ -552,6 +562,7 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
         ("poseidon2_permute", lambda: poseidon2_kernel.permute(perm2, x),
          lambda: poseidon2_kernel.poseidon2_permute_plain(perm2, x)),
     )
+    plain_out = {}
     for name, kern, plain in cases:
         got, exp = kern(), plain()
         ms = _time(kern, reps, dev)
@@ -560,6 +571,26 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
         _check(name, results, [got], [exp], ms, pms,
                f"bn254_fr width 3 (B={B}, {prod} products + {sqr} squares per state)",
                (_mont_words(16, B * prod, B * sqr), 2 * x.numel() * 4))
+        plain_out[name] = (exp, pms)
+
+    # both K5 variants at the batch sizes around a block of 128 states, a
+    # narrow Merkle level and the wrapper's switch between them, against the
+    # first b states of the plain version's output at B (it permutes each
+    # state alone; one plain call costs about as much at b = 1 as at 2^16,
+    # so this slicing is itself held once, at b = 3)
+    edge = poseidon_kernel.SPLIT_MAX_B
+    prod, sqr = products["poseidon_permute"]
+    full, pms = plain_out["poseidon_permute"]
+    if not torch.equal(poseidon_kernel.permute_plain(perm, x[:, :, :3].contiguous()), full[:, :, :3]):
+        fail("the plain K5 of 3 states differs from the first 3 of its 2^16 output")
+    for b in sorted({1, 2, 3, 127, 128, 129, 2047, 2048, 16895, 16896, 16897, edge, edge + 1, B} & set(range(1, B + 1))):
+        xb = x[:, :, :b].contiguous()
+        for which in poseidon_kernel.VARIANTS:
+            got = poseidon_kernel.permute(perm, xb, which)
+            ms = _time(lambda: poseidon_kernel.permute(perm, xb, which), reps, dev)
+            _check("poseidon_permute", results, [got], [full[:, :, :b]], ms, pms,
+                   f"K5 {which} (B={b}{', the wrapper picks it' if poseidon_kernel.variant(b) == which else ''};"
+                   f" plain: the B={B} call)", (_mont_words(16, b * prod, b * sqr), 2 * xb.numel() * 4))
 
     vec = json.loads((ROOT / "tests" / "vectors" / "poseidon_perm_width3_bls381.json").read_text())
     gstate = limb.tensor(limb.pack_mont(BLS12_381_FR, [[int(v)] for v in vec["input"]]), dev)
@@ -573,7 +604,7 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
     leaves = _rand_field(BN254_FR, 1 << log_b, rng, dev)
     full = _rand_field(BN254_FR, 1 << log_full, rng, dev)
     for k in all_kernels:
-        k.launches = 0
+        k.reset()
     for label, fn in (("poseidon", lambda: perm.permute(x)), ("poseidon optimized", lambda: perm.permute_optimized(x)),
                       ("poseidon2", lambda: perm2.permute(x))):
         ms = _time(fn, reps, dev)
@@ -618,7 +649,7 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
         f"(plain build {ms:.1f} ms)")
 
     # where a warm build's time goes, and the floor of its narrow levels:
-    # K5 on one block of 128 states is one thread's 63 serial rounds
+    # K5 on one block of 128 states is one state's 63 serial rounds
     report = prof.profile(lambda: MerkleTree.from_leaf_digests(params, leaves, device=dev))
     log(f"[profile] one more warm h{height} bulk build of {leaves.shape[1]} leaves")
     for line in report.lines(8):
@@ -627,7 +658,7 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
         fail("the profiler recorded no device activity")
     one_block = x[:, :, :128].contiguous()
     ms = _time(lambda: poseidon_kernel.permute(perm, one_block), reps, dev)
-    log(f"[hash] K5 on 128 states (one block, one SM): {ms:.4f} ms")
+    log(f"[hash] K5 on 128 states ({poseidon_kernel.variant(128)} variant, one state's latency): {ms:.4f} ms")
     # each level's device time in warm builds; a level is narrow when its
     # states fill less than one 128-thread block per SM
     narrow = 128 * (torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 1)
@@ -663,6 +694,10 @@ def _fold_check(name, results, curve, fold_in, device, reps):
 
     ms = _time(lambda: ec_kernel.fold_madd(*args), reps, device)
     pms = _time(lambda: ec_kernel.fold_madd_plain(*args), 1, device)
+    packed = ec_kernel.point_words(curve, pts)
+    copy_ms = _time(lambda: ec_kernel.point_words(curve, pts), reps, device)
+    log(f"[kzg] {name}: the point-major copy of {pts.x.shape[-1]} points ({packed.numel() * 4 / 2**20:.1f} MiB) "
+        f"takes {copy_ms:.4f} ms per fold call (in the kernel time below)")
     E, l, ext, n_limbs = keys.numel(), keys.numel() // r, curve.ext, curve.base.n_limbs
     starts = int((keys[1:] != keys[:-1]).sum().item()) + 1
     prod, sqr = EC_PRODUCTS["madd", ext]
@@ -678,6 +713,7 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
     """Phase 7. Returns (kernel results, launches of the slice's kernels)."""
     import torch
 
+    from openzl_tpu_torch.curves import jacobian as jac
     from openzl_tpu_torch.fields import limb
     from openzl_tpu_torch.fields.spec import BN254_FR
     from openzl_tpu_torch.ops import msm, ntt, ntt_kernel
@@ -726,10 +762,15 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
                 dev, reps)
     if b2_fold is not None:
         _fold_check("bn254 G2 B2 MSM of phase 5", results, BN254.g2, b2_fold, dev, reps)
+    few = limb.tensor(limb.pack(spec, [9, 9, 4]), dev)
+    small = msm.fold_inputs(g1, [(few, jac.take(params.powers_g1, torch.arange(3, device=dev)))], 4, 4)
+    if small[3] != 1:
+        fail(f"the small fold has r = {small[3]}, not the smallest chunk length 1")
+    _fold_check("bn254 G1 MSM of 3 entries (r = 1)", results, g1, small, dev, reps)
 
     # the slice through its entry points, launch counters zeroed before
     for k in all_kernels:
-        k.launches = 0
+        k.reset()
     steps = []
 
     def step(label, fn):

@@ -103,31 +103,43 @@ OZL_HD void ec_add(const EcParams<F>& E, const typename F::T& X1, const typename
 
 // One chunk of the MSM bucket fold (K9, fold_kernel.cu): entries e0 ..
 // e0 + r - 1 of the sorted keys (n entries in all) with point indices pidx
-// into the normalized points (px, py; n_pts of them). acc starts at the
-// identity; at each entry acc = start ? q : madd(acc, q); at a segment tail
-// the prefix goes to bucket slot `key` with its bflag (the segment started
-// in this chunk) and the chunk index c. Returns whether the chunk holds a
-// start; the chunk total is left in (ax, ay, az).
-template <class F>
+// into the normalized points. acc starts at the identity; at each entry acc
+// = start ? q : madd(acc, q); at a segment tail the prefix goes to bucket
+// slot `key` with its bflag (the segment started in this chunk) and the
+// chunk index c. Returns whether the chunk holds a start; the chunk total is
+// left in (ax, ay, az).
+//
+// The points come through `src`, which stages them ahead: src.fetch(j, i)
+// starts loading point i for entry j, src.commit() closes the entries
+// fetched so far, src.wait() waits for all but the newest closed batch,
+// and src.x(j) / src.y(j) read entry j's staged X and Y. Entry j + 1's
+// point, and its index and the next key, are in flight while entry j's
+// madd runs.
+template <class F, class Src>
 OZL_HD bool fold_chunk(const EcParams<F>& E, const int64_t* keys, const int64_t* pidx, int64_t n,
-                       int64_t c, int r, const int32_t* px, const int32_t* py, int64_t n_pts,
-                       const typename F::T& one, int32_t* bx, int32_t* by, int32_t* bz,
-                       uint8_t* bflag, int64_t* bchunk, int64_t width, typename F::T& ax,
-                       typename F::T& ay, typename F::T& az) {
+                       int64_t c, int r, Src& src, const typename F::T& one, int32_t* bx,
+                       int32_t* by, int32_t* bz, uint8_t* bflag, int64_t* bchunk, int64_t width,
+                       typename F::T& ax, typename F::T& ay, typename F::T& az) {
   using T = typename F::T;
-  T* tag = nullptr;
   ax = F::raw_one();
   ay = F::raw_one();
   az = F::zero();
   bool started = false;  // a segment started in this chunk, at or before j
   const int64_t e0 = c * r;
   int64_t prev = e0 > 0 ? keys[e0 - 1] : -1;
+  int64_t key = keys[e0];
+  src.fetch(0, pidx[e0]);
+  src.commit();
+  int64_t inext = r > 1 ? pidx[e0 + 1] : 0;
   for (int j = 0; j < r; ++j) {
     const int64_t e = e0 + j;
-    const int64_t key = keys[e];
+    if (j + 1 < r) src.fetch(j + 1, inext);
+    src.commit();
     const int64_t next = e + 1 < n ? keys[e + 1] : -1;
-    const int64_t i = pidx[e];
-    T qx = load_coord(px, n_pts, i, tag), qy = load_coord(py, n_pts, i, tag);
+    inext = j + 2 < r ? pidx[e + 2] : 0;
+    src.wait();
+    const T& qx = src.x(j);
+    const T& qy = src.y(j);
     if (key != prev) {
       ax = qx;
       ay = qy;
@@ -148,25 +160,42 @@ OZL_HD bool fold_chunk(const EcParams<F>& E, const int64_t* keys, const int64_t*
       bchunk[key] = c;
     }
     prev = key;
+    key = next;
   }
   return started;
 }
 
-// host constants -> EcParams over Fq (1) or Fq2 (2, u^2 = beta)
-template <int NW>
-inline EcParams<F1<NW>> params1(const uint32_t* p, uint32_t n0, int has_a, const uint32_t* a) {
-  EcParams<F1<NW>> E;
-  E.field = F1<NW>{make_params<NW>(p, n0)};
+// The fold's point source on the host: point i is X then Y as 32-bit words
+// at pts[i * PW] (point-major, PW = 2 * sizeof(T) / 4), read in place.
+template <class T>
+struct DirectPoints {
+  static constexpr int PW = 2 * (int)(sizeof(T) / sizeof(uint32_t));
+  const uint32_t* pts;
+  const uint32_t* at[2] = {nullptr, nullptr};
+  OZL_HD void fetch(int j, int64_t i) { at[j & 1] = pts + i * PW; }
+  OZL_HD void commit() {}
+  OZL_HD void wait() {}
+  OZL_HD const T& x(int j) const { return *reinterpret_cast<const T*>(at[j & 1]); }
+  OZL_HD const T& y(int j) const { return *reinterpret_cast<const T*>(at[j & 1] + PW / 2); }
+};
+
+// host constants -> EcParams over Fq (1) or Fq2 (2, u^2 = beta), on the
+// base field F1 (K3, K4) or F1c (K9)
+template <int NW, class Base = F1<NW>>
+inline EcParams<Base> params1(const uint32_t* p, uint32_t n0, int has_a, const uint32_t* a) {
+  EcParams<Base> E;
+  E.field.f = make_params<NW>(p, n0);
   E.has_a = has_a != 0;
   for (int i = 0; i < NW; ++i) E.a.w[i] = has_a ? a[i] : 0;
   return E;
 }
 
-template <int NW>
-inline EcParams<F2<NW>> params2(const uint32_t* p, uint32_t n0, int beta, int has_a,
-                                const uint32_t* a) {
-  EcParams<F2<NW>> E;
-  E.field = F2<NW>{F1<NW>{make_params<NW>(p, n0)}, -beta};
+template <int NW, class Base = F1<NW>>
+inline EcParams<F2<NW, Base>> params2(const uint32_t* p, uint32_t n0, int beta, int has_a,
+                                      const uint32_t* a) {
+  EcParams<F2<NW, Base>> E;
+  E.field.b.f = make_params<NW>(p, n0);
+  E.field.k = -beta;
   E.has_a = has_a != 0;
   for (int i = 0; i < NW; ++i) {
     E.a.c0.w[i] = has_a ? a[i] : 0;

@@ -196,15 +196,262 @@ struct F1 {
 };
 
 // ---------------------------------------------------------------------------
-// quadratic extension c0 + c1 u, u^2 = beta = -k (k = 1 for BN254 and
-// BLS12-381, 5 for BLS12-377)
+// carry-chain primitives (K5 and K9 only): PTX add.cc / addc / mad.lo.cc /
+// madc.hi on the card, where the carry flag CC.CF lives between the
+// instructions. On the host the same functions emulate the flag in `cc`, so
+// the products below also run (and are tested) as host C++. Every asm
+// statement is volatile: nvcc must not reorder the links of one chain.
 // ---------------------------------------------------------------------------
 
+struct Carry {
+  uint32_t cf = 0;  // the host's carry (or borrow) flag; unused on the card
+};
+
+#ifdef __CUDA_ARCH__
+#define OZL_CC1(op, a, b)                                                 \
+  uint32_t r;                                                             \
+  asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));             \
+  (void)cc;                                                               \
+  return r
+#define OZL_CC2(op, a, b, c)                                              \
+  uint32_t r;                                                             \
+  asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c)); \
+  (void)cc;                                                               \
+  return r
+// r = lo/hi(a b) + c [+ cf], setting cf where the name says .cc
+OZL_HD uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { OZL_CC2("mad.lo.cc.u32", a, b, c); }
+OZL_HD uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { OZL_CC2("madc.lo.cc.u32", a, b, c); }
+OZL_HD uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { OZL_CC2("mad.hi.cc.u32", a, b, c); }
+OZL_HD uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { OZL_CC2("madc.hi.cc.u32", a, b, c); }
+OZL_HD uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { OZL_CC2("madc.hi.u32", a, b, c); }
+OZL_HD uint32_t mad_hi(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { OZL_CC2("mad.hi.u32", a, b, c); }
+OZL_HD uint32_t add_cc(uint32_t a, uint32_t b, Carry& cc) { OZL_CC1("add.cc.u32", a, b); }
+OZL_HD uint32_t addc_cc(uint32_t a, uint32_t b, Carry& cc) { OZL_CC1("addc.cc.u32", a, b); }
+OZL_HD uint32_t addc(uint32_t a, uint32_t b, Carry& cc) { OZL_CC1("addc.u32", a, b); }
+OZL_HD uint32_t sub_cc(uint32_t a, uint32_t b, Carry& cc) { OZL_CC1("sub.cc.u32", a, b); }
+OZL_HD uint32_t subc_cc(uint32_t a, uint32_t b, Carry& cc) { OZL_CC1("subc.cc.u32", a, b); }
+OZL_HD uint32_t subc(uint32_t a, uint32_t b, Carry& cc) { OZL_CC1("subc.u32", a, b); }
+#undef OZL_CC1
+#undef OZL_CC2
+#else
+OZL_HD uint32_t cc_out(uint64_t s, Carry& cc) {
+  cc.cf = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+}
+OZL_HD uint64_t lo64(uint32_t a, uint32_t b) { return (uint32_t)((uint64_t)a * b); }
+OZL_HD uint64_t hi64(uint32_t a, uint32_t b) { return ((uint64_t)a * b) >> 32; }
+OZL_HD uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { return cc_out(lo64(a, b) + c, cc); }
+OZL_HD uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { return cc_out(lo64(a, b) + c + cc.cf, cc); }
+OZL_HD uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { return cc_out(hi64(a, b) + c, cc); }
+OZL_HD uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { return cc_out(hi64(a, b) + c + cc.cf, cc); }
+OZL_HD uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c, Carry& cc) { return (uint32_t)(hi64(a, b) + c + cc.cf); }
+OZL_HD uint32_t mad_hi(uint32_t a, uint32_t b, uint32_t c, Carry&) { return (uint32_t)(hi64(a, b) + c); }
+OZL_HD uint32_t add_cc(uint32_t a, uint32_t b, Carry& cc) { return cc_out((uint64_t)a + b, cc); }
+OZL_HD uint32_t addc_cc(uint32_t a, uint32_t b, Carry& cc) { return cc_out((uint64_t)a + b + cc.cf, cc); }
+OZL_HD uint32_t addc(uint32_t a, uint32_t b, Carry& cc) { return a + b + cc.cf; }
+OZL_HD uint32_t sub_cc(uint32_t a, uint32_t b, Carry& cc) {
+  cc.cf = a < b;
+  return a - b;
+}
+OZL_HD uint32_t subc_cc(uint32_t a, uint32_t b, Carry& cc) {
+  const uint64_t d = (uint64_t)a - b - cc.cf;
+  cc.cf = (uint32_t)(d >> 63);
+  return (uint32_t)d;
+}
+OZL_HD uint32_t subc(uint32_t a, uint32_t b, Carry& cc) { return a - b - cc.cf; }
+#endif
+
+// t[0 .. NW] += a[0 .. NW-1] * b, the sum known to fit in NW + 1 words: one
+// chain of low halves, one of high halves (2 NW multiply issues)
 template <int NW>
+OZL_HD void mac_row(uint32_t* t, const uint32_t* a, uint32_t b, Carry& cc) {
+  static_assert(NW >= 2, "a row needs two words");
+  t[0] = mad_lo_cc(a[0], b, t[0], cc);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) t[j] = madc_lo_cc(a[j], b, t[j], cc);
+  t[NW] = addc(t[NW], 0, cc);
+  t[1] = mad_hi_cc(a[0], b, t[1], cc);
+#pragma unroll
+  for (int j = 1; j < NW - 1; ++j) t[j + 1] = madc_hi_cc(a[j], b, t[j + 1], cc);
+  t[NW] = madc_hi(a[NW - 1], b, t[NW], cc);
+}
+
+// F1 with the Montgomery product and square on carry chains, the square
+// and the product-sum reduced once (K5 and K9; K1-K4 and K6-K8 keep F1).
+// Needs p < 2^(32 NW - 1) - 2^(32 NW - 33) (top word below 0x7FFFFFFF:
+// BN254 Fr and Fq, BLS12-381 Fr), so that a CIOS step fits NW + 1 words.
+template <int NW>
+struct F1c : F1<NW> {
+  using T = Fp<NW>;
+
+  // a + b, one conditional subtraction (a + b < 2p < 2^(32 NW): no carry out)
+  OZL_HD T add(const T& a, const T& b) const {
+    uint32_t s[NW];
+    Carry cc;
+    s[0] = add_cc(a.w[0], b.w[0], cc);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) s[j] = addc_cc(a.w[j], b.w[j], cc);
+    return csub(s);
+  }
+
+  OZL_HD T dbl(const T& a) const { return add(a, a); }
+
+  // a - b, plus p where it borrowed
+  OZL_HD T sub(const T& a, const T& b) const {
+    T d, e;
+    Carry cc;
+    d.w[0] = sub_cc(a.w[0], b.w[0], cc);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) d.w[j] = subc_cc(a.w[j], b.w[j], cc);
+    const uint32_t borrow = subc(0, 0, cc);
+    e.w[0] = add_cc(d.w[0], this->f.p[0], cc);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) e.w[j] = addc_cc(d.w[j], this->f.p[j], cc);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) d.w[j] = borrow ? e.w[j] : d.w[j];
+    return d;
+  }
+
+  // t (NW words, t < 2p) -> [0, p)
+  OZL_HD T csub(const uint32_t* t) const {
+    T d;
+    Carry cc;
+    d.w[0] = sub_cc(t[0], this->f.p[0], cc);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) d.w[j] = subc_cc(t[j], this->f.p[j], cc);
+    const uint32_t borrow = subc(0, 0, cc);
+    T r;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) r.w[j] = borrow ? t[j] : d.w[j];
+    return r;
+  }
+
+  // CIOS a b R^-1 mod p: per word of b, t += a b_i, then t += m p with
+  // m = t_0 n0, which clears t_0, and a shift; t < 2p throughout
+  OZL_HD T mul(const T& a, const T& b) const {
+    uint32_t t[NW + 1];
+#pragma unroll
+    for (int j = 0; j <= NW; ++j) t[j] = 0;
+    Carry cc;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      mac_row<NW>(t, a.w, b.w[i], cc);
+      mac_row<NW>(t, this->f.p, t[0] * this->f.n0, cc);
+#pragma unroll
+      for (int j = 0; j < NW; ++j) t[j] = t[j + 1];
+      t[NW] = 0;
+    }
+    return csub(t);
+  }
+
+  // x (2 NW words, x < W p^2 with W p < 2^(32 NW)) -> x R^-1 mod p, fully
+  // reduced: Montgomery-reduce the low half (t <= p), add the high half
+  // (t + hi < p + W p^2 / R + 1, which may carry out of NW words), then
+  // subtract p at most twice
+  OZL_HD T redc(const uint32_t* x) const {
+    uint32_t t[NW + 1];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) t[j] = x[j];
+    t[NW] = 0;
+    Carry cc;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      mac_row<NW>(t, this->f.p, t[0] * this->f.n0, cc);
+#pragma unroll
+      for (int j = 0; j < NW; ++j) t[j] = t[j + 1];
+      t[NW] = 0;
+    }
+    t[0] = add_cc(t[0], x[NW], cc);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) t[j] = addc_cc(t[j], x[NW + j], cc);
+    const uint32_t top = addc(0, 0, cc);
+    // first subtraction: taken when the sum carried or is >= p
+    T d;
+    d.w[0] = sub_cc(t[0], this->f.p[0], cc);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) d.w[j] = subc_cc(t[j], this->f.p[j], cc);
+    const bool take = top | !subc(0, 0, cc);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) t[j] = take ? d.w[j] : t[j];
+    return csub(t);
+  }
+
+  // a^2: the cross products a_i a_j (i < j) once, doubled, plus the
+  // squares a_i^2 on the diagonal (NW (NW + 1) / 2 word products), then redc
+  OZL_HD T sqr(const T& a) const {
+    uint32_t x[2 * NW];
+#pragma unroll
+    for (int j = 0; j < 2 * NW; ++j) x[j] = 0;
+    Carry cc;
+#pragma unroll
+    for (int i = 0; i < NW - 1; ++i) {
+      // row i: a_i a_j at words i + j (j > i); word i + NW is still 0
+      x[2 * i + 1] = mad_lo_cc(a.w[i], a.w[i + 1], x[2 * i + 1], cc);
+#pragma unroll
+      for (int j = i + 2; j < NW; ++j) x[i + j] = madc_lo_cc(a.w[i], a.w[j], x[i + j], cc);
+      x[i + NW] = addc(x[i + NW], 0, cc);
+      if (i + 1 == NW - 1) {
+        x[i + NW] = mad_hi(a.w[i], a.w[i + 1], x[i + NW], cc);
+      } else {
+        x[2 * i + 2] = mad_hi_cc(a.w[i], a.w[i + 1], x[2 * i + 2], cc);
+#pragma unroll
+        for (int j = i + 2; j < NW - 1; ++j) x[i + j + 1] = madc_hi_cc(a.w[i], a.w[j], x[i + j + 1], cc);
+        x[i + NW] = madc_hi(a.w[i], a.w[NW - 1], x[i + NW], cc);
+      }
+    }
+    x[0] = add_cc(x[0], x[0], cc);
+#pragma unroll
+    for (int j = 1; j < 2 * NW; ++j) x[j] = addc_cc(x[j], x[j], cc);
+    x[0] = mad_lo_cc(a.w[0], a.w[0], x[0], cc);
+    x[1] = madc_hi_cc(a.w[0], a.w[0], x[1], cc);
+#pragma unroll
+    for (int i = 1; i < NW - 1; ++i) {
+      x[2 * i] = madc_lo_cc(a.w[i], a.w[i], x[2 * i], cc);
+      x[2 * i + 1] = madc_hi_cc(a.w[i], a.w[i], x[2 * i + 1], cc);
+    }
+    x[2 * NW - 2] = madc_lo_cc(a.w[NW - 1], a.w[NW - 1], x[2 * NW - 2], cc);
+    x[2 * NW - 1] = madc_hi(a.w[NW - 1], a.w[NW - 1], x[2 * NW - 1], cc);
+    return redc(x);
+  }
+
+  // sum_k a_k b_k, unreduced, into acc (2 NW + 1 words, zeroed here): word
+  // i of every a_k before word i + 1 of any, so a row's carry stops at
+  // word i + NW + 1 (the partial sum stays below K p 2^(32 (i + 1)))
+  template <int K>
+  OZL_HD static void mac_sum(uint32_t* acc, const T* a, const T* b) {
+#pragma unroll
+    for (int j = 0; j <= 2 * NW; ++j) acc[j] = 0;
+    Carry cc;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        uint32_t* t = acc + i;
+        const uint32_t ai = a[k].w[i];
+        t[0] = mad_lo_cc(ai, b[k].w[0], t[0], cc);
+#pragma unroll
+        for (int j = 1; j < NW; ++j) t[j] = madc_lo_cc(ai, b[k].w[j], t[j], cc);
+        t[NW] = addc_cc(t[NW], 0, cc);
+        t[NW + 1] = addc(t[NW + 1], 0, cc);
+        t[1] = mad_hi_cc(ai, b[k].w[0], t[1], cc);
+#pragma unroll
+        for (int j = 1; j < NW; ++j) t[j + 1] = madc_hi_cc(ai, b[k].w[j], t[j + 1], cc);
+        t[NW + 1] = addc(t[NW + 1], 0, cc);
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// quadratic extension c0 + c1 u, u^2 = beta = -k (k = 1 for BN254 and
+// BLS12-381, 5 for BLS12-377), over the base field Base (F1 or F1c)
+// ---------------------------------------------------------------------------
+
+template <int NW, class Base = F1<NW>>
 struct F2 {
   using T = Fp2<NW>;
   using B = Fp<NW>;
-  F1<NW> b;
+  Base b;
   int k;
 
   OZL_HD B nr(const B& x) const {  // k * x

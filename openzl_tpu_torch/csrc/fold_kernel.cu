@@ -12,9 +12,9 @@
 // from the neighbouring keys, read in the kernel.
 //
 // Two things are deliberately not carried over from the TPU kernel:
-//   * gather fused: q = pts[pidx[e]] is read from the normalized point
-//     array by index, instead of from a pre-gathered column-major copy of
-//     every entry's point;
+//   * gather fused: q = pts[pidx[e]] is read from the normalized points by
+//     index, instead of from a pre-gathered column-major copy of every
+//     entry's point;
 //   * pick fused: the running prefix is written only at a segment tail,
 //     straight into the tail's bucket slot (the key), with the reference's
 //     `bflag` (the segment started in this chunk) and the chunk index,
@@ -23,32 +23,82 @@
 // The reason is memory: at the 4096-link Groth16 size the G1 MSM has about
 // 3 sets x 17 windows x 2^20 = 53 M entries, and a gathered copy plus every
 // prefix, at 64 bytes per Fq coordinate, is over 15 GB of traffic that the
-// fused form does not move. What is left per entry is its key, its index
-// and one random read of an affine point (128 bytes over Fq, 256 over Fq2).
+// fused form does not move.
 //
-// Bound on the card: the madd chain, ~7 products and 4 squares per entry
-// over Fq (3x over Fq2), in registers; every thread's r steps are serial,
-// so the chunk count (entries / r) sets the parallelism. Entries are live
-// normalized points (Z = 1): the madd's second Z is Montgomery one, as the
-// reference's skip_z fold assumes.
+// Bound on the card: the madd chain, 7 products and 4 squares per entry
+// over Fq (29 base products over Fq2), serial within a thread, so the
+// chunk count (entries / r) sets the parallelism and one chunk's chain its
+// latency. What the design does about it:
+//   * the field is F1c (field.cuh): carry-chain products and a dedicated
+//     square, fewer instructions and registers than F1's 64-bit C;
+//   * the points arrive point-major (the wrapper packs them: X then Y of
+//     point i as 32-bit words at pts[i * PW], 64 bytes a G1 point, 128 a
+//     G2 point), so one entry's point is PW / 4 16-byte loads instead of
+//     2 PW scattered 4-byte loads;
+//   * those loads are cp.async copies into a two-slot ring in shared memory
+//     per thread, issued one entry ahead (with the next index and key), so
+//     the gather's latency hides behind the madd; the madd reads X and Y
+//     from shared memory where it uses them instead of holding them in
+//     registers;
+//   * launch bounds cap the registers so that the chunks of a 2^16-point
+//     commit (~53 K threads) are resident at once; the madd chains then
+//     share the SMs' integer issue, which bounds the fold.
+// Entries are live normalized points (Z = 1): the madd's second Z is
+// Montgomery one, as the reference's skip_z fold assumes.
 #include <cuda_runtime.h>
 
 #include "ec.cuh"
 
 namespace {
 
-template <class F>
-__global__ void __launch_bounds__(128)
-    fold_kernel(const int64_t* keys, const int64_t* pidx, int64_t l, int r, const int32_t* px,
-                const int32_t* py, int64_t n_pts, int32_t* tx, int32_t* ty, int32_t* tz,
-                uint8_t* tflag, int32_t* bx, int32_t* by, int32_t* bz, uint8_t* bflag,
-                int64_t* bchunk, int64_t width, typename F::T one, EcParams<F> E) {
+// Blocks of 128 threads; at least 4 resident per SM over Fq (128 registers
+// and 38 bytes of spill stores: the 415 blocks of a 2^16-point commit's 53 K
+// chunks run in one wave, where 3 blocks at 167 registers leave some to a
+// second) and 2 over Fq2 (241 registers, no spill). The other block sizes
+// and bounds that tools/kernel_probe.py times were no faster (PERF.md).
+constexpr int kThreads = 128;
+constexpr int kMinBlocksG1 = 4;
+constexpr int kMinBlocksG2 = 2;
+
+// The fold's point source on the card: each thread's two slots of a ring in
+// shared memory, filled by cp.async. A slot is PW + 4 words: 16-byte aligned
+// for cp.async, and eight threads' 16-byte reads fall in distinct banks.
+template <class T>
+struct RingPoints {
+  static constexpr int PW = 2 * (int)(sizeof(T) / sizeof(uint32_t));
+  static constexpr int STRIDE = PW + 4;
+  const uint32_t* pts;
+  uint32_t* base;  // this thread's slot 0; slot 1 is kThreads * STRIDE words on
+  __device__ const uint32_t* slot(int j) const { return base + (j & 1) * (kThreads * STRIDE); }
+  __device__ void fetch(int j, int64_t i) {
+    const uint32_t* g = pts + i * PW;
+    const uint32_t s = (uint32_t)__cvta_generic_to_shared(slot(j));
+#pragma unroll
+    for (int v = 0; v < PW / 4; ++v)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s + 16 * v), "l"(g + 4 * v)
+                   : "memory");
+  }
+  __device__ void commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+  __device__ void wait() { asm volatile("cp.async.wait_group 1;" ::: "memory"); }
+  __device__ const T& x(int j) const { return *reinterpret_cast<const T*>(slot(j)); }
+  __device__ const T& y(int j) const { return *reinterpret_cast<const T*>(slot(j) + PW / 2); }
+};
+
+template <class F, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
+    fold_kernel(const int64_t* keys, const int64_t* pidx, int64_t l, int r, const uint32_t* pts,
+                int32_t* tx, int32_t* ty, int32_t* tz, uint8_t* tflag, int32_t* bx, int32_t* by,
+                int32_t* bz, uint8_t* bflag, int64_t* bchunk, int64_t width, typename F::T one,
+                EcParams<F> E) {
   using T = typename F::T;
+  using Src = RingPoints<T>;
+  __shared__ __align__(16) uint32_t ring[2 * kThreads * Src::STRIDE];
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= l) return;
+  Src src{pts, ring + threadIdx.x * Src::STRIDE};
   T ax, ay, az;
-  const bool started = fold_chunk<F>(E, keys, pidx, l * r, c, r, px, py, n_pts, one, bx, by, bz,
-                                     bflag, bchunk, width, ax, ay, az);
+  const bool started = fold_chunk<F>(E, keys, pidx, l * r, c, r, src, one, bx, by, bz, bflag,
+                                     bchunk, width, ax, ay, az);
   store_coord(tx, l, c, ax);
   store_coord(ty, l, c, ay);
   store_coord(tz, l, c, az);
@@ -67,41 +117,40 @@ Fp2<NW> words2(const uint32_t* v) {
   return {words1<NW>(v), words1<NW>(v + NW)};
 }
 
-const int kThreads = 128;
-
-template <class F>
-int launch_fold(void** c, int64_t l, int r, int64_t n_pts, int64_t width,
-                const typename F::T& one, const EcParams<F>& E, cudaStream_t st) {
+template <class F, int MIN_BLOCKS>
+int launch_fold(void** c, int64_t l, int r, int64_t width, const typename F::T& one,
+                const EcParams<F>& E, cudaStream_t st) {
   int64_t blocks = (l + kThreads - 1) / kThreads;
   if (blocks > 0)
-    fold_kernel<F><<<(unsigned)blocks, kThreads, 0, st>>>(
-        (const int64_t*)c[0], (const int64_t*)c[1], l, r, (const int32_t*)c[2],
-        (const int32_t*)c[3], n_pts, (int32_t*)c[4], (int32_t*)c[5], (int32_t*)c[6],
-        (uint8_t*)c[7], (int32_t*)c[8], (int32_t*)c[9], (int32_t*)c[10], (uint8_t*)c[11],
-        (int64_t*)c[12], width, one, E);
+    fold_kernel<F, MIN_BLOCKS><<<(unsigned)blocks, kThreads, 0, st>>>(
+        (const int64_t*)c[0], (const int64_t*)c[1], l, r, (const uint32_t*)c[2], (int32_t*)c[3],
+        (int32_t*)c[4], (int32_t*)c[5], (uint8_t*)c[6], (int32_t*)c[7], (int32_t*)c[8],
+        (int32_t*)c[9], (uint8_t*)c[10], (int64_t*)c[11], width, one, E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// c: keys, pidx (int64, l * r), px, py (the points' X and Y), totals x, y,
-// z (l), tflag (l bytes), buckets x, y, z (width), bflag (width bytes),
-// bchunk (int64, width)
-extern "C" int ozl_fold_madd(int ext, void* keys, void* pidx, int64_t l, int r, void* px,
-                             void* py, int64_t n_pts, void* tx, void* ty, void* tz, void* tflag,
-                             void* bx, void* by, void* bz, void* bflag, void* bchunk,
-                             int64_t width, int n_limbs, const void* p, uint32_t n0, int beta,
-                             int has_a, const void* a, const void* one, void* stream) {
-  void* c[13] = {keys, pidx, px, py, tx, ty, tz, tflag, bx, by, bz, bflag, bchunk};
+// c: keys, pidx (int64, l * r), pts (the normalized points, point-major
+// 32-bit words: X then Y, 2 * ext * n_limbs / 2 words a point), totals x,
+// y, z (l), tflag (l bytes), buckets x, y, z (width), bflag (width bytes),
+// bchunk (int64, width). F1c needs the top word of p below 0x7FFFFFFF.
+extern "C" int ozl_fold_madd(int ext, void* keys, void* pidx, int64_t l, int r, void* pts,
+                             void* tx, void* ty, void* tz, void* tflag, void* bx, void* by,
+                             void* bz, void* bflag, void* bchunk, int64_t width, int n_limbs,
+                             const void* p, uint32_t n0, int beta, int has_a, const void* a,
+                             const void* one, void* stream) {
+  void* c[12] = {keys, pidx, pts, tx, ty, tz, tflag, bx, by, bz, bflag, bchunk};
   const uint32_t* pw = (const uint32_t*)p;
   const uint32_t* aw = (const uint32_t*)a;
   const uint32_t* ow = (const uint32_t*)one;
   cudaStream_t st = (cudaStream_t)stream;
-  if (n_limbs != 16 || r < 1) return (int)cudaErrorInvalidValue;
+  if (n_limbs != 16 || r < 1 || pw[7] >= 0x7FFFFFFFu) return (int)cudaErrorInvalidValue;
   if (ext == 1)
-    return launch_fold(c, l, r, n_pts, width, words1<8>(ow), params1<8>(pw, n0, has_a, aw), st);
+    return launch_fold<F1c<8>, kMinBlocksG1>(
+        c, l, r, width, words1<8>(ow), params1<8, F1c<8>>(pw, n0, has_a, aw), st);
   if (ext == 2)
-    return launch_fold(c, l, r, n_pts, width, words2<8>(ow), params2<8>(pw, n0, beta, has_a, aw),
-                       st);
+    return launch_fold<F2<8, F1c<8>>, kMinBlocksG2>(
+        c, l, r, width, words2<8>(ow), params2<8, F1c<8>>(pw, n0, beta, has_a, aw), st);
   return (int)cudaErrorInvalidValue;
 }

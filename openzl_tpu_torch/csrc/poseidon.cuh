@@ -1,7 +1,7 @@
 // The round functions of the Poseidon kernels (poseidon_kernel.cu, K5 and
-// K6; poseidon2_kernel.cu, K7) on one state held in registers, and what
-// they share: the state layout at the kernel boundary, the constant buffer
-// layout and the S-box. Compiles as host C++ too (field.cuh's OZL_HD), so
+// K6; poseidon2_kernel.cu, K7) on one state held in registers (K5 also on
+// a group of four lanes), and what they share: the state layout at the
+// kernel boundary, the constant buffer layout and the S-box. Compiles as host C++ too (field.cuh's OZL_HD), so
 // the rounds can be run on the host against the plain torch versions.
 #pragma once
 #include <stddef.h>
@@ -32,9 +32,9 @@ OZL_HD Fp<NW> word_fp(const uint32_t* s) {
   return r;
 }
 
-// x^5 as two squarings and a product
-template <int NW>
-OZL_HD Fp<NW> pow5(const F1<NW>& F, const Fp<NW>& x) {
+// x^5 as two squarings and a product (over F1, or F1c for K5)
+template <class Fd, int NW>
+OZL_HD Fp<NW> pow5(const Fd& F, const Fp<NW>& x) {
   Fp<NW> x2 = F.sqr(x);
   Fp<NW> x4 = F.sqr(x2);
   return F.mul(x4, x);
@@ -55,11 +55,24 @@ OZL_HD void mat_apply(const F1<NW>& F, Fp<NW> (&x)[W], const uint32_t* m, int so
   for (int o = 0; o < W; ++o) x[o] = y[o];
 }
 
-// K5 rounds over the constant buffer [round keys (rounds, W, NW);
-// MDS (W, W, NW)]: add keys, S-box (every element in full rounds, element
-// 0 in partial rounds), M x
+// K5's MDS product M x: output o is sum_k M(o, k) x_k, W products summed
+// unreduced (F1c::mac_sum) and reduced once; needs W p < 2 R (W = 3:
+// BN254 Fr and BLS12-381 Fr)
 template <int W, int NW>
-OZL_HD void poseidon_rounds(const F1<NW>& F, Fp<NW> (&x)[W], const uint32_t* c, int full_rounds,
+OZL_HD Fp<NW> mds_row(const F1c<NW>& F, const Fp<NW> (&x)[W], const uint32_t* row) {
+  Fp<NW> m[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) m[k] = word_fp<NW>(row + k * NW);
+  uint32_t acc[2 * NW + 1];
+  F1c<NW>::template mac_sum<W>(acc, x, m);
+  return F.redc(acc);
+}
+
+// K5 rounds on one state over the constant buffer [round keys (rounds, W,
+// NW); MDS (W, W, NW)]: add keys, S-box (every element in full rounds,
+// element 0 in partial rounds), M x
+template <int W, int NW>
+OZL_HD void poseidon_rounds(const F1c<NW>& F, Fp<NW> (&x)[W], const uint32_t* c, int full_rounds,
                             int partial_rounds) {
   const int rounds = full_rounds + partial_rounds;
   const int half = full_rounds / 2;
@@ -74,7 +87,81 @@ OZL_HD void poseidon_rounds(const F1<NW>& F, Fp<NW> (&x)[W], const uint32_t* c, 
 #pragma unroll
       for (int j = 1; j < W; ++j) x[j] = pow5(F, x[j]);
     }
-    mat_apply<W, NW>(F, x, mds, W, 1);
+    Fp<NW> y[W];
+#pragma unroll
+    for (int o = 0; o < W; ++o) y[o] = mds_row<W, NW>(F, x, mds + (size_t)o * W * NW);
+#pragma unroll
+    for (int o = 0; o < W; ++o) x[o] = y[o];
+  }
+}
+
+// x[o] for a lane-dependent o, by selects (no local-memory indexing)
+template <int W, int NW>
+OZL_HD Fp<NW> pick(const Fp<NW> (&x)[W], int o) {
+  Fp<NW> r = x[0];
+#pragma unroll
+  for (int k = 1; k < W; ++k)
+    if (o == k) r = x[k];
+  return r;
+}
+
+// K5 for narrow batches: one width-3 state on a group of kSplit = 4 lanes
+// that run the same instructions on different operands. Every lane holds
+// the whole state between rounds; lane o < 3 owns state element and MDS row
+// o, lane 3 helps with row 0. Full round: lanes 0-2 take their element's
+// S-box at once, exchange the results, and each reduces its row once
+// (mds_row). Partial round, three products on every lane: lane 0 computes
+// x0^2, x0^4, x0^5, while lane o computes M(o, 1) x1 and M(o, 2) x2 (lane
+// 3 for row 0) and adds them; lane 0 trades x0^5 for row 0's part, and
+// every lane ends with one product, part + M(o, 0) x0^5. The serial chain
+// per round is 3 S-box products and one row (full) or 4 products
+// (partial), against 3 S-boxes and 3 rows (full) or 1 S-box and 3 rows
+// (partial) on one thread. `G` exchanges one word within the group:
+// g.shfl(v, src) returns lane src's v (__shfl_sync on the card).
+constexpr int kSplit = 4;
+
+template <int NW, class G>
+OZL_HD Fp<NW> shfl_fp(G& g, const Fp<NW>& v, int src) {
+  Fp<NW> r;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) r.w[w] = g.shfl(v.w[w], src);
+  return r;
+}
+
+template <int NW, class G>
+OZL_HD void poseidon_split_lane(const F1c<NW>& F, G& g, int lane, Fp<NW> (&x)[3], const uint32_t* c,
+                                int full_rounds, int partial_rounds) {
+  constexpr int W = 3;
+  static_assert(W + 1 == kSplit, "three rows and a helper lane");
+  const int rounds = full_rounds + partial_rounds;
+  const int half = full_rounds / 2;
+  const uint32_t* mds = c + (size_t)rounds * W * NW;
+  const int o = lane < W ? lane : 0;
+  const uint32_t* row = mds + (size_t)o * W * NW;
+  const bool head = lane == 0;
+#pragma unroll 1
+  for (int r = 0; r < rounds; ++r) {
+    const uint32_t* kr = c + (size_t)r * W * NW;
+#pragma unroll
+    for (int j = 0; j < W; ++j) x[j] = F.add(x[j], word_fp<NW>(kr + j * NW));
+    Fp<NW> y;
+    if (r < half || r >= half + partial_rounds) {
+      const Fp<NW> z = pow5(F, pick<W, NW>(x, o));
+      Fp<NW> zs[W];
+#pragma unroll
+      for (int k = 0; k < W; ++k) zs[k] = shfl_fp<NW>(g, z, k);
+      y = mds_row<W, NW>(F, zs, row);
+    } else {
+      const Fp<NW> m1 = word_fp<NW>(row + NW), m2 = word_fp<NW>(row + 2 * NW);
+      const Fp<NW> u = F.mul(head ? x[0] : m1, head ? x[0] : x[1]);
+      const Fp<NW> v = F.mul(head ? u : m2, head ? u : x[2]);
+      const Fp<NW> s = F.mul(v, x[0]);
+      const Fp<NW> part = F.add(u, v);
+      const Fp<NW> got = shfl_fp<NW>(g, head ? s : part, head ? W : 0);
+      y = F.add(head ? got : part, F.mul(word_fp<NW>(row), head ? s : got));
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k) x[k] = shfl_fp<NW>(g, y, k);
   }
 }
 
@@ -195,12 +282,12 @@ OZL_HD int poseidon2_words(int full_rounds, int partial_rounds, int NW) {
   return (full_rounds * W + partial_rounds) * NW + W;
 }
 
-enum PermKind { kPoseidon = 0, kPoseidonOpt = 1, kPoseidon2 = 2 };
+// K6 and K7 run through permute_kernel; K5 has its own (poseidon_kernel.cu)
+enum PermKind { kPoseidonOpt = 1, kPoseidon2 = 2 };
 
 template <int KIND, int W, int NW>
 OZL_HD void run_rounds(const F1<NW>& F, Fp<NW> (&x)[W], const uint32_t* c, int full_rounds,
                        int partial_rounds) {
-  if constexpr (KIND == kPoseidon) poseidon_rounds<W, NW>(F, x, c, full_rounds, partial_rounds);
   if constexpr (KIND == kPoseidonOpt) poseidon_opt_rounds<W, NW>(F, x, c, full_rounds, partial_rounds);
   if constexpr (KIND == kPoseidon2) poseidon2_rounds<W, NW>(F, x, c, full_rounds, partial_rounds);
 }

@@ -6,34 +6,123 @@
 // rounds), then the dense MDS product M x. K6 replaces `_kernel_opt` (:198,
 // through `permute_lanes_opt()`): the same permutation with the constants
 // moved after the S-box and the partial rounds' MDS factored into sparse
-// matrices. The rounds are `poseidon_rounds` and `poseidon_opt_rounds` in
-// poseidon.cuh.
+// matrices. The rounds are in poseidon.cuh (`poseidon_rounds` and
+// `poseidon_split_lane` for K5, `poseidon_opt_rounds` for K6).
 //
-// Design: one thread per state; the width-3 state is 3 x 8 32-bit words in
-// registers for all rounds, so device memory is touched once to read the
-// state and once to write it. The round constants and matrices (6.2 KB for
-// K5, 11.6 KB for K6 at width 3) are staged in shared memory by each block
-// and read as warp-wide broadcasts. Rounds are a runtime loop (`#pragma
-// unroll 1`) with only the word loops unrolled, which keeps the code to one
-// round body (nvcc time, instruction cache). Bound on the card: integer
-// multiplies. A width-3 state costs 804 Montgomery products in K5 and 584 in
-// K6, each 136 32x32->64-bit word products (CIOS at 8 words), against 192 B
-// of state traffic each way: compute-bound by more than an order of
-// magnitude. The TPU kernel's (n_blocks, n, S, 128) lane layout and its
-// batch multiple of 4096 were VMEM tiling artefacts; any batch runs here.
+// K5 has two variants; the wrapper picks one from the batch B
+// (ops/poseidon_kernel.py `SPLIT_MAX_B`):
+//   * wide (large B): one thread per state. Bound on the card: integer
+//     multiplies. The field arithmetic is F1c (field.cuh): CIOS products on
+//     PTX carry chains, a dedicated square for the S-box, and each MDS row
+//     as W products summed unreduced with one reduction (at width 3 a row
+//     costs 3 NW^2 + NW^2 + NW/2 word products instead of 3 (2 NW^2 +
+//     NW/2)).
+//   * split (narrow B, e.g. the upper levels of a Merkle build): four lanes
+//     per state (poseidon_split_lane). A level of a few thousand states
+//     leaves most of the card idle, so the time is one state's serial chain
+//     of products; spreading the state over lanes cuts that chain to about
+//     half (3 S-box products and one row per full round, 4 products per
+//     partial round), at twice the total work.
+// Both read and write the (n_limbs, W, B) limb layout of the port and
+// return fully reduced elements, so each is bit-equal to `permute_plain`.
+// The constants (6.2 KB for K5, 11.6 KB for K6 at width 3) are staged in
+// shared memory by each block and read as broadcasts. K6 keeps its first
+// design: one thread per state over F1 (permute_kernel in poseidon.cuh).
 #include <cuda_runtime.h>
 
 #include "poseidon.cuh"
 
-// Instantiated for width 3 over 16-limb (8-word) fields; anything else is
-// refused with cudaErrorInvalidValue (the wrapper checks first).
+namespace {
+
+constexpr int kThreads = 128;
+
+__device__ void stage_consts(uint32_t* sm, const int32_t* consts, int n_words) {
+  for (int e = threadIdx.x; e < n_words; e += blockDim.x) sm[e] = (uint32_t)consts[e];
+  __syncthreads();
+}
+
+template <int W, int NW>
+__global__ void __launch_bounds__(kThreads)
+    poseidon_wide_kernel(int32_t* out, const int32_t* in, const int32_t* consts, int64_t B,
+                         int full_rounds, int partial_rounds, int n_words, FieldParams<NW> f) {
+  extern __shared__ uint32_t sm[];
+  stage_consts(sm, consts, n_words);
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  F1c<NW> F;
+  F.f = f;
+  Fp<NW> x[W];
+  load_state<W, NW>(x, in, B, b);
+  poseidon_rounds<W, NW>(F, x, sm, full_rounds, partial_rounds);
+  store_state<W, NW>(out, B, b, x);
+}
+
+// the lane exchange of poseidon_split_lane: groups of kSplit lanes
+struct WarpGroup {
+  __device__ uint32_t shfl(uint32_t v, int src) { return __shfl_sync(0xffffffffu, v, src, kSplit); }
+};
+
+// Every lane of a warp reaches every shuffle: the lanes of groups past B
+// repeat the last state and store nothing.
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+    poseidon_split_kernel(int32_t* out, const int32_t* in, const int32_t* consts, int64_t B,
+                          int full_rounds, int partial_rounds, int n_words, FieldParams<NW> f) {
+  constexpr int W = 3;
+  extern __shared__ uint32_t sm[];
+  stage_consts(sm, consts, n_words);
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = (int)(t % kSplit);
+  const int64_t b = t / kSplit;
+  const int64_t bl = b < B ? b : B - 1;
+  const int o = lane < W ? lane : 0;
+  F1c<NW> F;
+  F.f = f;
+  WarpGroup g;
+  const Fp<NW> mine = load_fp<NW>(in + o * B, (int64_t)W * B, bl);
+  Fp<NW> x[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) x[k] = shfl_fp<NW>(g, mine, k);
+  poseidon_split_lane<NW>(F, g, lane, x, sm, full_rounds, partial_rounds);
+  if (b < B && lane < W) store_fp<NW>(out + lane * B, (int64_t)W * B, b, pick<W, NW>(x, lane));
+}
+
+template <int W, int NW>
+int launch_poseidon(void* out, const void* in, const void* consts, int64_t B, int split,
+                    int full_rounds, int partial_rounds, const uint32_t* p, uint32_t n0,
+                    cudaStream_t st) {
+  const int n_words = poseidon_words<W>(full_rounds, partial_rounds, NW);
+  const size_t smem = sizeof(uint32_t) * (size_t)n_words;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int64_t threads = split ? B * kSplit : B;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  const FieldParams<NW> f = make_params<NW>(p, n0);
+  if (blocks > 0) {
+    if (split)
+      poseidon_split_kernel<NW><<<(unsigned)blocks, kThreads, smem, st>>>(
+          (int32_t*)out, (const int32_t*)in, (const int32_t*)consts, B, full_rounds,
+          partial_rounds, n_words, f);
+    else
+      poseidon_wide_kernel<W, NW><<<(unsigned)blocks, kThreads, smem, st>>>(
+          (int32_t*)out, (const int32_t*)in, (const int32_t*)consts, B, full_rounds,
+          partial_rounds, n_words, f);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K5 is instantiated for width 3 over 16-limb (8-word) fields whose top
+// word is below 0x7FFFFFFF (F1c); anything else is refused with
+// cudaErrorInvalidValue (the wrapper checks first). `split` picks the
+// four-lanes-per-state variant.
 extern "C" int ozl_poseidon_permute(void* out, const void* in, const void* consts, int64_t B,
-                                    int width, int full_rounds, int partial_rounds, int n_limbs,
-                                    const void* p, uint32_t n0, void* stream) {
-  if (width != 3 || n_limbs != 16) return (int)cudaErrorInvalidValue;
-  return launch_permute<kPoseidon, 3, 8>(out, in, consts, B, full_rounds, partial_rounds,
-                                         poseidon_words<3>(full_rounds, partial_rounds, 8),
-                                         (const uint32_t*)p, n0, (cudaStream_t)stream);
+                                    int split, int width, int full_rounds, int partial_rounds,
+                                    int n_limbs, const void* p, uint32_t n0, void* stream) {
+  const uint32_t* pw = (const uint32_t*)p;
+  if (width != 3 || n_limbs != 16 || pw[7] >= 0x7FFFFFFFu) return (int)cudaErrorInvalidValue;
+  return launch_poseidon<3, 8>(out, in, consts, B, split, full_rounds, partial_rounds, pw, n0,
+                               (cudaStream_t)stream);
 }
 
 extern "C" int ozl_poseidon_permute_opt(void* out, const void* in, const void* consts, int64_t B,

@@ -204,7 +204,7 @@ def ec_add(curve: CurveSpec, P, Q, mixed: bool = False):
         build.stream_ptr(flat[0]),
     )
     build.check(code, "K3 ec_add")
-    K3.launches += 1
+    K3.count(N)
     return tuple(o.reshape(shape) for o in outs)
 
 
@@ -221,7 +221,7 @@ def ec_dbl(curve: CurveSpec, P):
         words.ctypes.data, n0, beta, has_a, a_words.ctypes.data, build.stream_ptr(flat[0]),
     )
     build.check(code, "K4 ec_dbl")
-    K4.launches += 1
+    K4.count(N)
     return tuple(o.reshape(shape) for o in outs)
 
 
@@ -230,16 +230,26 @@ def ec_dbl(curve: CurveSpec, P):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _mont_one(curve: CurveSpec, device) -> torch.Tensor:
+    """Montgomery one of the coordinate field, (n_limbs[, 2], 1), built once
+    per device (a copy from the host on every fold call would wait for the
+    device's queue)."""
+    return field_ops(curve).one((1,), device).contiguous()
+
+
 def _fold_outputs(curve: CurveSpec, l: int, width: int, device):
-    """The fold's outputs as both versions start them: chunk totals (l,) and
-    their start flags, and the bucket slots (width,) that segment tails
-    overwrite, initialised to the identity (X = Y = Montgomery one, Z = 0),
-    flag True and chunk 0, so an untouched slot combines to the identity."""
+    """The fold's outputs as the kernel starts them: chunk totals (l,) and
+    their start flags, which it writes in full (left uninitialised), and the
+    bucket slots (width,) that segment tails overwrite, initialised to the
+    identity (X = Y = Montgomery one, Z = 0), flag True and chunk 0, so an
+    untouched slot combines to the identity."""
     F = field_ops(curve)
-    totals = tuple(F.zeros((l,), device) for _ in range(3))
-    tflag = torch.zeros(l, dtype=torch.bool, device=device)
-    one = F.one((width,), device)
-    buckets = tuple(one.clone(memory_format=torch.contiguous_format) for _ in range(2))
+    head = (curve.base.n_limbs,) + ((2,) if curve.ext == 2 else ())
+    totals = tuple(torch.empty(head + (l,), dtype=torch.int32, device=device) for _ in range(3))
+    tflag = torch.empty(l, dtype=torch.bool, device=device)
+    one = _mont_one(curve, torch.device(device))
+    buckets = tuple(one.expand(one.shape[:-1] + (width,)).contiguous() for _ in range(2))
     buckets += (F.zeros((width,), device),)
     bflag = torch.ones(width, dtype=torch.bool, device=device)
     bchunk = torch.zeros(width, dtype=torch.int64, device=device)
@@ -255,7 +265,8 @@ def fold_madd_plain(curve: CurveSpec, pts, keys, pidx, r: int, width: int):
     n = keys.shape[0]
     l = n // r
     dev = keys.device
-    totals, tflag, buckets, bflag, bchunk = _fold_outputs(curve, l, width, dev)
+    _, _, buckets, bflag, bchunk = _fold_outputs(curve, l, width, dev)
+    tflag = torch.zeros(l, dtype=torch.bool, device=dev)
     none = keys.new_full((1,), -1)
     starts = (keys != torch.cat([none, keys[:-1]])).reshape(l, r)
     tails = (keys != torch.cat([keys[1:], none])).reshape(l, r)
@@ -279,33 +290,51 @@ def fold_madd_plain(curve: CurveSpec, pts, keys, pidx, r: int, width: int):
     return acc, tflag, buckets, bflag, bchunk
 
 
+def point_words(curve: CurveSpec, pts) -> torch.Tensor:
+    """K9's point-major copy of the points: (n_pts, 2 ext n_limbs / 2) int32,
+    row i holding X then Y of point i as 32-bit little-endian words (c0's
+    words, then c1's, over Fq2), from the limb-planar (n_limbs[, 2], n_pts)
+    coordinates. One point is 64 contiguous bytes over Fq, 128 over Fq2.
+    Each 16-bit limb is cut to int16 in one converting copy per coordinate,
+    and each pair of limbs is then read as one 32-bit word."""
+    n, N = curve.base.n_limbs, pts[0].shape[-1]
+    inner = (2, n) if curve.ext == 2 else (n,)
+    out = torch.empty((N, 2) + inner, dtype=torch.int16, device=pts[0].device)
+    for k in range(2):
+        out[:, k].copy_(pts[k].permute(*range(pts[k].ndim - 1, -1, -1)))
+    return out.view(torch.int32).reshape(N, -1)
+
+
 def fold_madd(curve: CurveSpec, pts, keys, pidx, r: int, width: int):
     """Fold the sorted MSM entries in chunks of r (K9).
 
     pts: the normalized points (X, Y, Z), batch (n_pts,), every entry's
     point live (Z = 1); keys: sorted int64 bucket keys in [0, width), length
-    a multiple of r; pidx: each entry's point index. Returns ((X, Y, Z) chunk
-    totals, chunk-holds-a-start flags, (X, Y, Z) bucket slots with each
-    segment tail's chunk-local prefix, bflag (the segment started in the
-    tail's chunk; True where no tail), the tail's chunk index)."""
+    a multiple of r; pidx: each entry's point index. On the card the kernel
+    reads the points through their point-major copy (`point_words`, made
+    per call). Returns ((X, Y, Z) chunk totals, chunk-holds-a-start flags,
+    (X, Y, Z) bucket slots with each segment tail's chunk-local prefix,
+    bflag (the segment started in the tail's chunk; True where no tail),
+    the tail's chunk index)."""
     if keys.shape != pidx.shape or keys.ndim != 1 or keys.shape[0] % r:
         raise ValueError(f"fold_madd: keys {tuple(keys.shape)}, pidx {tuple(pidx.shape)}, r={r}")
     if device_kind(keys, pidx, *pts) == "cpu":
         return fold_madd_plain(curve, pts, keys, pidx, r, width)
-    (px, py), _ = _flat(curve, tuple(pts[:2]))
+    _flat(curve, tuple(pts[:2]))
     if keys.dtype != torch.int64 or pidx.dtype != torch.int64:
         raise ValueError("fold_madd: keys and pidx must be int64")
     keys, pidx = keys.contiguous(), pidx.contiguous()
+    packed = point_words(curve, pts)
     l = keys.shape[0] // r
     totals, tflag, buckets, bflag, bchunk = _fold_outputs(curve, l, width, keys.device)
     words, n0, beta, has_a, a_words = _launch_args(curve)
     code = build.lib().ozl_fold_madd(
-        curve.ext, keys.data_ptr(), pidx.data_ptr(), l, r, px.data_ptr(), py.data_ptr(),
-        px.shape[-1], *(t.data_ptr() for t in totals), tflag.data_ptr(),
+        curve.ext, keys.data_ptr(), pidx.data_ptr(), l, r, packed.data_ptr(),
+        *(t.data_ptr() for t in totals), tflag.data_ptr(),
         *(b.data_ptr() for b in buckets), bflag.data_ptr(), bchunk.data_ptr(), width,
         curve.base.n_limbs, words.ctypes.data, n0, beta, has_a, a_words.ctypes.data,
         _const_words(curve, 1).ctypes.data, build.stream_ptr(keys),
     )
     build.check(code, "K9 fold_madd")
-    K9.launches += 1
+    K9.count(keys.shape[0])
     return totals, tflag, buckets, bflag, bchunk

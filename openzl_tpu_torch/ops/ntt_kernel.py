@@ -131,7 +131,7 @@ def _launch_mul(spec: FieldSpec, a, b, b_limb_stride: int, b_elem_stride: int):
         spec.n_limbs, words.ctypes.data, n0, build.stream_ptr(a),
     )
     build.check(code, "K1 mont_mul")
-    K1.launches += 1
+    K1.count(N)
     return out
 
 
@@ -215,7 +215,7 @@ def small_ntt(spec: FieldSpec, x, stage_tw, post_tw=None):
         M, lanes, n, words.ctypes.data, n0, build.stream_ptr(x),
     )
     build.check(code, "K2 small_ntt")
-    K2.launches += 1
+    K2.count(M * lanes)
     return out
 
 
@@ -237,7 +237,7 @@ def _launch_butterfly(spec, u_ptr, t_ptr, in_ls, tw, mask, lo_ptr, hi_ptr, out_l
         H, B, spec.n_limbs, words.ctypes.data, n0, build.stream_ptr(like),
     )
     build.check(code, "K8 butterfly")
-    K8.launches += 1
+    K8.count(H * B)
 
 
 def butterfly(spec: FieldSpec, u, t, tw):

@@ -5,10 +5,15 @@ Port of `openzl_tpu/ops/poseidon_kernel.py`. The CUDA source is
 holds the wrappers, launch counters and plain torch versions.
 
 A state batch is (n_limbs, width, B) int32 Montgomery limbs, the layout of
-the whole port; the kernels read and write it directly, one thread per
-state, so nothing is re-laid out around a launch. The round constants and
-matrices go to the kernel as one int32 buffer of 32-bit words, built once
-per device (`words_buffer`).
+the whole port; the kernels read and write it directly, so nothing is
+re-laid out around a launch. The round constants and matrices go to the
+kernel as one int32 buffer of 32-bit words, built once per device
+(`words_buffer`).
+
+K5 has two variants, both kernels: "wide", one thread per state, and
+"split", four lanes per state with half the serial chain of products, for
+batches too narrow to fill the card (the upper levels of a Merkle build).
+`variant(B)` picks "split" up to `SPLIT_MAX_B` states.
 
 Dispatch: a CUDA tensor launches the kernel (a failed build or launch
 raises), a CPU tensor runs the plain version. Nothing moves between devices.
@@ -39,6 +44,17 @@ K6 = build.KernelInfo(
 #: (arity 2 over a 254/255-bit field: BN254 Fr, BLS12-381 Fr)
 KERNEL_WIDTH = 3
 KERNEL_LIMBS = 16
+
+#: K5 runs the split variant up to this many states, the wide one above:
+#: where the two variants' times cross on the H100 (`tools/kernel_probe.py`;
+#: PERF.md)
+SPLIT_MAX_B = 10240
+VARIANTS = ("wide", "split")
+
+
+def variant(batch: int) -> str:
+    """The K5 variant the wrapper launches for `batch` states."""
+    return "split" if batch <= SPLIT_MAX_B else "wide"
 
 
 def words(arr: np.ndarray, limb_axis: int) -> np.ndarray:
@@ -175,25 +191,31 @@ def _optimized_words(perm, device) -> torch.Tensor:
     ], device))
 
 
-def _launch(entry: str, kernel: build.KernelInfo, perm, state, consts) -> torch.Tensor:
+def _launch(entry: str, kernel: build.KernelInfo, perm, state, consts, *head) -> torch.Tensor:
     check_state(perm, state)
     p_words, n0 = ntt_kernel.word_consts(perm.spec)
     out = torch.empty_like(state)
+    B = state.shape[2]
     code = getattr(build.lib(), entry)(
-        out.data_ptr(), state.data_ptr(), consts.data_ptr(), state.shape[2], perm.width,
+        out.data_ptr(), state.data_ptr(), consts.data_ptr(), B, *head, perm.width,
         perm.full_rounds, perm.partial_rounds, perm.spec.n_limbs, p_words.ctypes.data, n0,
         build.stream_ptr(state),
     )
     build.check(code, f"{kernel.name}")
-    kernel.launches += 1
+    kernel.count(B)
     return out
 
 
-def permute(perm, state: torch.Tensor) -> torch.Tensor:
-    """Classic Poseidon on (n_limbs, width, B) (K5)."""
+def permute(perm, state: torch.Tensor, which: str | None = None) -> torch.Tensor:
+    """Classic Poseidon on (n_limbs, width, B) (K5). On the card `which`
+    ("wide" or "split") forces a variant; by default `variant(B)` picks."""
     if device_kind(state) == "cpu":
         return permute_plain(perm, state)
-    return _launch("ozl_poseidon_permute", K5, perm, state, _classic_words(perm, state.device))
+    which = which or variant(state.shape[2])
+    if which not in VARIANTS:
+        raise ValueError(f"K5 variant {which!r} is not one of {VARIANTS}")
+    return _launch("ozl_poseidon_permute", K5, perm, state, _classic_words(perm, state.device),
+                   int(which == "split"))
 
 
 def permute_optimized(perm, state: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,245 @@
+"""Measurements behind K5's and K9's design choices, on one GPU.
+
+    python3 -m openzl_tpu_torch.tools.kernel_probe
+
+Prints, on the card it runs on:
+  * `field_microbench.cu` (built here with nvcc): latency and throughput of
+    the F1 and F1c field operations and of one G1 mixed add, and K5's
+    split rounds at 32, 64 and 128 threads a block; then the instruction
+    mix of each of its kernels (`cuobjdump -sass`);
+  * K5's two variants through the wrapper over batch sizes around the
+    switch (`poseidon_kernel.SPLIT_MAX_B`);
+  * K9 on the G1 fold of a 2^16-point KZG commit and a G2 fold of 120,323
+    random points with 120-bit scalars: the point-major copy, the output
+    initialisation, and builds of `csrc/fold_kernel.cu` with other block
+    sizes and launch bounds, with the point reads straight from device
+    memory instead of the cp.async ring, and without the tail stores
+    (which gives wrong buckets: timing only). Each build is held against
+    the shipped one (chunk totals; buckets too where the tail stores are
+    kept).
+Builds go to `build/kernel_probe/` beside the kernel library. Exits non-zero
+without a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+import random
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from ..curves import jacobian as jac
+from ..fields import limb
+from ..fields.spec import BN254_FR
+from ..ops import ec_kernel, msm, poseidon_kernel
+from ..crypto.poseidon.permutation import Poseidon
+from ..proof_systems import BN254, KZG
+from ..utils import build
+
+HERE = pathlib.Path(__file__).resolve().parent
+OUT = build.BUILD_DIR.parent / "kernel_probe"
+
+#: (threads a block, least blocks per SM over Fq, over Fq2); the first is
+#: what fold_kernel.cu ships
+FOLD_BOUNDS = [(128, 4, 2), (128, 3, 3), (64, 8, 4), (64, 6, 4), (32, 16, 8), (32, 12, 8)]
+DIRECT_SRC = """template <class T>
+struct DirectRead {
+  static constexpr int PW = 2 * (int)(sizeof(T) / sizeof(uint32_t));
+  static constexpr int STRIDE = PW + 4;
+  const uint32_t* pts;
+  const uint32_t* p0 = nullptr;
+  const uint32_t* p1 = nullptr;
+  __device__ void fetch(int j, int64_t i) { (j & 1 ? p1 : p0) = pts + i * PW; }
+  __device__ void commit() {}
+  __device__ void wait() {}
+  __device__ const T& x(int j) const { return *reinterpret_cast<const T*>(j & 1 ? p1 : p0); }
+  __device__ const T& y(int j) const { return *reinterpret_cast<const T*>((j & 1 ? p1 : p0) + PW / 2); }
+};
+
+"""
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _timed(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _ptxas(text: str) -> list:
+    """(registers, spill store bytes) of each entry function in a -Xptxas -v log."""
+    out = []
+    for entry in re.split(r"Compiling entry function '", text)[1:]:
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        out.append((int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None))
+    return out
+
+
+def _fold_sources() -> dict:
+    """name -> (fold_kernel.cu, ec.cuh) texts of each K9 build to time."""
+    fold = (build.CSRC / "fold_kernel.cu").read_text()
+    ec = (build.CSRC / "ec.cuh").read_text()
+    shipped = "constexpr int kThreads = 128;\nconstexpr int kMinBlocksG1 = 4;\nconstexpr int kMinBlocksG2 = 2;"
+    if shipped not in fold:
+        raise RuntimeError("fold_kernel.cu no longer ships 128 threads and 4 / 2 blocks per SM")
+    builds = {}
+    for t, g1, g2 in FOLD_BOUNDS:
+        bounds = f"constexpr int kThreads = {t};\nconstexpr int kMinBlocksG1 = {g1};\nconstexpr int kMinBlocksG2 = {g2};"
+        builds[f"{t} threads, {g1} / {g2} blocks per SM"] = (fold.replace(shipped, bounds), ec)
+    kernel = "template <class F, int MIN_BLOCKS>\n__global__"
+    direct = fold.replace(kernel, DIRECT_SRC + kernel, 1).replace(
+        "Src src{pts, ring + threadIdx.x * Src::STRIDE};", "DirectRead<T> src{pts};")
+    no_tails = ec.replace("if (key != next) {  // segment tail", "if (false) {  // segment tail")
+    builds["direct reads"] = (direct, ec)
+    builds["no tail stores"] = (fold, no_tails)
+    for name, (f, e) in builds.items():
+        if name != "128 threads, 4 / 2 blocks per SM" and (f, e) == (fold, ec):
+            raise RuntimeError(f"the {name} build did not change the source")
+    return builds
+
+
+def _start_builds():
+    """Start nvcc for the microbenchmark and every K9 build; returns the
+    processes by name with their outputs."""
+    nvcc = build._nvcc()
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    exe = OUT / "field_microbench"
+    procs["microbench"] = (exe, subprocess.Popen(
+        [nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(exe), str(HERE / "field_microbench.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for i, (name, (fold, ec)) in enumerate(_fold_sources().items()):
+        d = OUT / f"fold_{i}"
+        d.mkdir(exist_ok=True)
+        (d / "fold_kernel.cu").write_text(fold)
+        (d / "ec.cuh").write_text(ec)
+        so = d / "fold.so"
+        procs[name] = (so, subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-I", str(d), "-I", str(build.CSRC), "-shared", "-o", str(so),
+             str(d / "fold_kernel.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _finish(proc, name: str) -> str:
+    text, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {name}:\n{text[-3000:]}")
+    return text
+
+
+def microbench(exe: pathlib.Path, report: str) -> None:
+    log(f"[build] field_microbench (registers, spill bytes): {_ptxas(report)}")
+    log(subprocess.run([str(exe)], capture_output=True, text=True, check=True).stdout.rstrip())
+    cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(exe)], capture_output=True, text=True, check=True).stdout
+    for fn in re.split(r"\n\s+Function : ", sass)[1:]:
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)
+        mix = {}
+        for op in ops:
+            mix[op.split(".")[0]] = mix.get(op.split(".")[0], 0) + 1
+        top = sorted(mix.items(), key=lambda kv: -kv[1])[:5]
+        log(f"[sass] {fn.split(chr(10), 1)[0][:70]}: {len(ops)} instructions; "
+            + ", ".join(f"{k} {v}" for k, v in top))
+
+
+def k5_sweep(dev, rng) -> None:
+    perm = Poseidon.create(BN254_FR, 2, device=dev)
+    p = BN254_FR.modulus
+    sizes = (32, 2048, 8192, 9216, 10240, 11264, 12288, 16896, 1 << 16)
+    x = limb.tensor(limb.pack_mont(BN254_FR, np.array([[rng.randrange(p) for _ in range(sizes[-1])]
+                                                        for _ in range(3)], dtype=object)), dev)
+    for B in sizes:
+        xb = x[:, :, :B].contiguous()
+        wide, split = (poseidon_kernel.permute(perm, xb, w) for w in poseidon_kernel.VARIANTS)
+        if not torch.equal(wide, split):
+            raise RuntimeError(f"K5 variants disagree at B={B}")
+        times = [_timed(lambda w=w: poseidon_kernel.permute(perm, xb, w), 20) for w in poseidon_kernel.VARIANTS]
+        log(f"[k5] B={B}: wide {times[0]:.4f} ms, split {times[1]:.4f} ms; the wrapper picks "
+            f"{poseidon_kernel.variant(B)}")
+
+
+class _WithFold:
+    """The kernel library with another build's K9 entry point."""
+
+    def __init__(self, main, fold):
+        self.main, self.ozl_fold_madd = main, fold
+
+    def __getattr__(self, name):
+        return getattr(self.main, name)
+
+
+def k9_builds(procs, dev, rng) -> None:
+    g1, g2 = BN254.g1, BN254.g2
+    params = KZG(BN254, backend="device", device=dev).setup((1 << 16) - 1, random.Random(7))
+    s1 = limb.tensor(limb.pack(g1.scalar, [rng.randrange(g1.scalar.modulus) for _ in range(1 << 16)]), dev)
+    n2 = 120323
+    base = jac.normalize(g2, msm.fixed_base_msm(g2, limb.tensor(limb.pack(
+        g2.scalar, [rng.randrange(1, g2.scalar.modulus) for _ in range(64)]), dev)))
+    pick = [torch.as_tensor(np.random.default_rng(s).integers(0, 64, n2), device=dev) for s in (1, 2)]
+    P2 = jac.add(g2, jac.take(base, pick[0]), jac.take(base, pick[1]))
+    s2 = limb.tensor(limb.pack(g2.scalar, [rng.randrange(1 << 120) for _ in range(n2)]), dev)
+    cases = []
+    for name, curve, job in (("G1 commit of 2^16", g1, (s1, params.powers_g1)), (f"G2 of {n2} points", g2, (s2, P2))):
+        pts, keys, pidx, r, c, W = msm.fold_inputs(curve, [job])
+        args = (curve, pts, keys, pidx, r, (W << c) + 1)
+        want = ec_kernel.fold_madd(*args)
+        reps = 20 if curve is g1 else 5
+        copy = _timed(lambda: ec_kernel.point_words(curve, pts), reps)
+        init = _timed(lambda: ec_kernel._fold_outputs(curve, keys.numel() // r, (W << c) + 1, dev), reps)
+        fold = [_timed(lambda: ec_kernel.fold_madd(*args), reps) for _ in range(2)]
+        log(f"[k9] {name}: {keys.numel()} entries, r={r}; shipped build {fold[0]:.4f} / {fold[1]:.4f} ms "
+            f"(of which the point-major copy {copy:.4f} ms, the output initialisation {init:.4f} ms)")
+        cases.append((name, args, want, reps))
+    main = build.lib()
+    flat = lambda o: [*o[0], o[1], *o[2], o[3], o[4]]
+    try:
+        for name, (so, proc) in procs.items():
+            regs = _ptxas(_finish(proc, name))
+            lib = ctypes.CDLL(str(so))
+            fn = lib.ozl_fold_madd
+            fn.argtypes, fn.restype = build._SIGNATURES["ozl_fold_madd"], ctypes.c_int
+            build.lib = lambda fn=fn: _WithFold(main, fn)
+            cols = []
+            for case, args, want, reps in cases:
+                got = ec_kernel.fold_madd(*args)
+                n = 4 if name == "no tail stores" else 9
+                same = all(torch.equal(a, b) for a, b in zip(flat(got)[:n], flat(want)[:n]))
+                t = [_timed(lambda: ec_kernel.fold_madd(*args), reps) for _ in range(2)]
+                cols.append(f"{case} {t[0]:.4f} / {t[1]:.4f} ms{'' if same else ' DIFFERS'}")
+            log(f"[k9] {name} (registers, spill bytes: Fq2 then Fq {regs}): " + "; ".join(cols))
+    finally:
+        build.lib = lambda: main
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("kernel_probe needs a GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[device] {smi}")
+    procs = _start_builds()
+    build.lib()
+    exe, proc = procs.pop("microbench")
+    microbench(exe, _finish(proc, "microbench"))
+    dev, rng = torch.device("cuda"), random.Random(1)
+    k5_sweep(dev, rng)
+    k9_builds(procs, dev, rng)
+
+
+if __name__ == "__main__":
+    main()

@@ -37,14 +37,27 @@ _LIB = None
 @dataclasses.dataclass
 class KernelInfo:
     """One hand-written kernel: where it lives, what it replaces, and how
-    many times a wrapper has launched it (a plain counter the smoke run
-    zeroes before driving the main path)."""
+    many times a wrapper has launched it (plain counters the smoke run
+    zeroes before driving the main path): in all, and by the launch's batch
+    rounded up to a power of two (`by_width`), so a ranking of the kernels
+    can read the shapes the path really gives them."""
 
     name: str
     source: str
     replaces: str
     route: str = "cuda"
     launches: int = 0
+    by_width: dict = dataclasses.field(default_factory=dict)
+
+    def count(self, batch: int) -> None:
+        """Record one launch over `batch` elements (states, points, ...)."""
+        self.launches += 1
+        bucket = 1 << (int(batch) - 1).bit_length() if batch > 0 else 0
+        self.by_width[bucket] = self.by_width.get(bucket, 0) + 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_width = {}
 
 
 def _sources():
@@ -129,13 +142,15 @@ _SIGNATURES = {
     "ozl_ec_add": [_I, _I] + [_VP] * 9 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],
     # (ext, x1, y1, z1, x3, y3, z3, N, n_limbs, p, n0, beta, has_a, a, stream)
     "ozl_ec_dbl": [_I] + [_VP] * 6 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],
-    # (ext, keys, pidx, l, r, px, py, n_pts, tx, ty, tz, tflag, bx, by, bz,
-    #  bflag, bchunk, width, n_limbs, p, n0, beta, has_a, a, one, stream)
-    "ozl_fold_madd": [_I, _VP, _VP, _I64, _I, _VP, _VP, _I64] + [_VP] * 9
+    # (ext, keys, pidx, l, r, pts, tx, ty, tz, tflag, bx, by, bz, bflag,
+    #  bchunk, width, n_limbs, p, n0, beta, has_a, a, one, stream)
+    "ozl_fold_madd": [_I, _VP, _VP, _I64, _I, _VP] + [_VP] * 9
     + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP, _VP],
+    # (out, state, consts, B, split, width, full_rounds, partial_rounds,
+    #  n_limbs, p, n0, stream)
+    "ozl_poseidon_permute": [_VP] * 3 + [_I64, _I, _I, _I, _I, _I, _VP, _U32, _VP],
     # (out, state, consts, B, width, full_rounds, partial_rounds, n_limbs,
     #  p, n0, stream)
-    "ozl_poseidon_permute": [_VP] * 3 + [_I64, _I, _I, _I, _I, _VP, _U32, _VP],
     "ozl_poseidon_permute_opt": [_VP] * 3 + [_I64, _I, _I, _I, _I, _VP, _U32, _VP],
     "ozl_poseidon2_permute": [_VP] * 3 + [_I64, _I, _I, _I, _I, _VP, _U32, _VP],
 }

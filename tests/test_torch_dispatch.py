@@ -1,0 +1,135 @@
+"""What the port's kernel wrappers do around a launch, checked on the CPU:
+the launch counts by batch width (`build.KernelInfo`), K9's point-major
+copy of the points (`ec_kernel.point_words`) against the limb-planar
+points, and the K5 wrapper's choice of variant by batch.
+
+The launch path is driven on CPU tensors with the kernel library replaced
+by a recording stand-in (`_FakeLib`), whose K5 entry point computes the
+plain permutation on the buffers the wrapper hands it. Through it a BN254
+Merkle build, the slice's entry point, is held against the JAX package's
+Python-int Poseidon oracle (`CurrentPath`). Inputs come from seeded
+`random.Random` / numpy; every comparison is exact (tolerance 0)."""
+
+import collections
+import ctypes
+import os
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from openzl_tpu.crypto.merkle import path as ref_path
+from openzl_tpu.crypto.merkle.tree import MerkleParameters as RefParameters
+from openzl_tpu.fields import limb as ref_limb
+from openzl_tpu.fields.spec import BN254_FR as REF_BN254_FR
+from openzl_tpu_torch.crypto.merkle.tree import MerkleParameters, MerkleTree
+from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
+from openzl_tpu_torch.curves import jacobian as jac
+from openzl_tpu_torch.curves.spec import BN254_G1, BN254_G2
+from openzl_tpu_torch.fields import limb
+from openzl_tpu_torch.fields.spec import BN254_FR
+from openzl_tpu_torch.ops import ec_kernel, poseidon_kernel
+from openzl_tpu_torch.ref import curve as ref
+from openzl_tpu_torch.utils import build
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
+
+def _view(ptr: int, shape) -> np.ndarray:
+    """The int32 buffer at a data pointer, as a numpy array (no copy)."""
+    n = int(np.prod(shape))
+    return np.ctypeslib.as_array((ctypes.c_int32 * n).from_address(ptr)).reshape(shape)
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records each K5 launch's batch and
+    variant flag and, when `compute`, writes the plain permutation into the
+    output."""
+
+    def __init__(self, perm):
+        self.perm, self.calls, self.compute = perm, [], True
+
+    def ozl_poseidon_permute(self, out, state, consts, B, split, width, rf, rp, n_limbs, p, n0, stream):
+        self.calls.append((B, split))
+        if not self.compute:
+            return 0
+        x = torch.from_numpy(_view(state, (n_limbs, width, B)).copy())
+        _view(out, (n_limbs, width, B))[...] = poseidon_kernel.permute_plain(self.perm, x).numpy()
+        return 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The K5 wrapper's launch path on CPU tensors, through `_FakeLib`."""
+    perm = Poseidon.create(BN254_FR, 2, device="cpu")
+    fake = _FakeLib(perm)
+    monkeypatch.setattr(poseidon_kernel, "device_kind", lambda *t: "cuda")
+    monkeypatch.setattr(build, "lib", lambda: fake)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: None)
+    monkeypatch.setattr(poseidon_kernel.K5, "launches", 0)
+    monkeypatch.setattr(poseidon_kernel.K5, "by_width", {})
+    return perm, fake
+
+
+def test_launch_counts_by_width():
+    k = build.KernelInfo(name="k", source="s", replaces="r")
+    for batch in (1, 2, 3, 4, 5, 128, 129, 16896, 1 << 17, 0):
+        k.count(batch)
+    assert k.launches == 10
+    assert k.by_width == {1: 1, 2: 1, 4: 2, 8: 1, 128: 1, 256: 1, 32768: 1, 1 << 17: 1, 0: 1}
+    k.reset()
+    assert (k.launches, k.by_width) == (0, {})
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
+def test_point_words_match_limb_planar_points(curve):
+    rng = random.Random(41)
+    G = ref.generator(curve)
+    pts = [ref.scalar_mul(curve, rng.randrange(1, 1 << 64), G) for _ in range(9)]
+    P = jac.from_affine_ints(curve, pts)
+    words = ec_kernel.point_words(curve, P)
+    n, ext = curve.base.n_limbs, curve.ext
+    assert words.dtype == torch.int32 and tuple(words.shape) == (9, ext * n) and words.is_contiguous()
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    limbs = torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(9, 2, ext, n)  # point, X/Y, c, limb
+    for k, coord in enumerate((P.x, P.y)):
+        planar = coord.reshape(n, ext, 9) if ext == 2 else coord[:, None, :]
+        assert torch.equal(limbs[:, k], planar.permute(2, 1, 0).to(torch.int64))
+
+
+def test_k5_wrapper_picks_variant_by_batch(fake_card):
+    perm, fake = fake_card
+    fake.compute = False
+    edge = poseidon_kernel.SPLIT_MAX_B
+    assert [poseidon_kernel.variant(b) for b in (1, 2048, edge, edge + 1, 1 << 16)] == \
+        ["split", "split", "split", "wide", "wide"]
+    x = torch.zeros((BN254_FR.n_limbs, 3, edge + 1), dtype=torch.int32)
+    for B in (1, edge, edge + 1):
+        poseidon_kernel.permute(perm, x[:, :, :B].contiguous())
+    poseidon_kernel.permute(perm, x[:, :, :5].contiguous(), "wide")
+    poseidon_kernel.permute(perm, x.contiguous(), "split")
+    assert fake.calls == [(1, 1), (edge, 1), (edge + 1, 0), (5, 0), (edge + 1, 1)]
+    assert poseidon_kernel.K5.launches == 5
+    want = collections.Counter(1 << (b - 1).bit_length() for b in (1, edge, edge + 1, 5, edge + 1))
+    assert poseidon_kernel.K5.by_width == dict(want)
+    with pytest.raises(ValueError, match="variant"):
+        poseidon_kernel.permute(perm, x[:, :, :5].contiguous(), "both")
+
+
+def test_merkle_build_through_k5_launch_path_matches_reference(fake_card):
+    """Every level of a BN254 build goes through the K5 launch path (the
+    split variant: each level is narrow) and the root equals the JAX
+    package's oracle root."""
+    perm, fake = fake_card
+    height, count = 6, 11
+    rng = np.random.default_rng(43)
+    vals = np.array([int.from_bytes(rng.bytes(40), "little") % BN254_FR.modulus for _ in range(count)], dtype=object)
+    leaves = ref_limb.pack_mont(REF_BN254_FR, vals)
+    tree = MerkleTree.from_leaf_digests(MerkleParameters(BN254_FR, height), leaves, device="cpu")
+    ref_cur = ref_path.CurrentPath.empty(RefParameters(REF_BN254_FR, height))
+    for i in range(count):
+        ref_cur = ref_cur.push(leaves[:, i])
+    assert [b for b, _ in fake.calls] == [6, 3, 2, 1, 1] and all(split for _, split in fake.calls)
+    assert torch.equal(tree.root(), limb.tensor(np.asarray(ref_cur.root_digest), "cpu"))

@@ -112,13 +112,21 @@ def test_k8_kernel_and_stage_route_match(cuda):
         assert torch.equal(fn(spec, x).cpu(), fn(spec, x.cpu())), fn.__name__
 
 
+@pytest.mark.parametrize("n_pts", [200, 2], ids=["r32", "r1"])
 @pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
-def test_k9_kernel_matches_plain(cuda, curve):
-    pts, _ = _points(curve, 200, 29)
-    pts[7] = pts[8]  # a repeated point: P = Q inside a bucket
+def test_k9_kernel_matches_plain(cuda, curve, n_pts):
+    """Chunks of r = 32 (200 points, 12-bit scalars, 3 windows), and of the
+    smallest r that `_chunk_len` picks (2 points, 4-bit scalars: at most 4
+    entries, r = 1)."""
+    pts, _ = _points(curve, max(n_pts, 12), 29)
+    pts = pts[4:4 + n_pts] if n_pts < 12 else pts
+    if n_pts > 8:
+        pts[7] = pts[8]  # a repeated point: P = Q inside a bucket
+    bits = 12 if n_pts > 8 else 4
     rng = random.Random(30)
-    scalars = limb.tensor(limb.pack(curve.scalar, [rng.randrange(1 << 12) for _ in pts]), cuda)
-    P, keys, pidx, r, c, W = msm.fold_inputs(curve, [(scalars, jac.from_affine_ints(curve, pts, cuda))], 4, 12)
+    scalars = limb.tensor(limb.pack(curve.scalar, [rng.randrange(1, 1 << bits) for _ in pts]), cuda)
+    P, keys, pidx, r, c, W = msm.fold_inputs(curve, [(scalars, jac.from_affine_ints(curve, pts, cuda))], 4, bits)
+    assert r == (32 if n_pts > 8 else 1)
     width = (W << c) + 1
     got = ec_kernel.fold_madd(curve, P, keys, pidx, r, width)
     want = ec_kernel.fold_madd_plain(curve, P, keys, pidx, r, width)
@@ -156,6 +164,18 @@ def test_k5_k6_k7_kernels_match_plain(cuda, spec):
     assert torch.equal(poseidon_kernel.permute_optimized(perm, x), want)
     assert torch.equal(poseidon2_kernel.permute(perm2, x), poseidon2_kernel.poseidon2_permute_plain(perm2, x))
     assert torch.equal(perm.permute(x.cpu()), want.cpu())
+
+
+@pytest.mark.parametrize("which", poseidon_kernel.VARIANTS)
+def test_k5_variants_match_plain_at_boundary_batches(cuda, which):
+    """Both K5 variants at the batch sizes around a block of 128 states,
+    a narrow Merkle level and the wrapper's switch between them."""
+    perm = Poseidon.create(BN254_FR, 2, device=cuda)
+    edge = poseidon_kernel.SPLIT_MAX_B
+    x = _states(BN254_FR, edge + 1, 37, cuda)
+    for B in (1, 2, 3, 127, 128, 129, 2047, 2048, edge, edge + 1):
+        xb = x[:, :, :B].contiguous()
+        assert torch.equal(poseidon_kernel.permute(perm, xb, which), poseidon_kernel.permute_plain(perm, xb)), B
 
 
 def test_merkle_tree_on_cuda_matches_cpu(cuda):

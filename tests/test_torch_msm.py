@@ -110,6 +110,20 @@ def test_msm_bucket_across_chunks_matches_oracle():
     assert jac.to_affine_ints(curve, got) == ref.msm(curve, scalars, points)
 
 
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
+def test_msm_smallest_chunk_matches_oracle(curve):
+    """An MSM of a few entries, which `_chunk_len` folds at its smallest
+    chunk length r = 1 (every entry its own chunk): 3 points, 4-bit
+    scalars in one window, two points sharing a digit."""
+    points = _case(curve, 6, 16)[1][:3]
+    points[1] = points[2]
+    scalars = [9, 9, 4]
+    P = jac.from_affine_ints(curve, points)
+    assert msm.fold_inputs(curve, [(_scalars(curve, scalars), P)], 4, 4)[3] == 1
+    got = msm.msm(curve, _scalars(curve, scalars), P, window_bits=4, n_bits=4)
+    assert jac.to_affine_ints(curve, got) == ref.msm(curve, scalars, points)
+
+
 def test_msm_g2_short_scalars_and_three_sets_match_oracle():
     """The fold over Fq2 (G2), and three G1 sets of different lengths in one
     `msm_sets` pipeline, with 16-bit scalars (a short Horner chain)."""
