@@ -7,7 +7,7 @@ with dense polynomials, and checks every hand-written kernel on the way.
 Phases:
 
   1. device   the card's name and power limit; fails without CUDA
-  2. build    nvcc builds the kernels (K1-K9) and `make -C native` the
+  2. build    nvcc builds the kernels (K1-K9, K3s) and `make -C native` the
               host library; prints the build seconds and each kernel's
               registers and spill stores (`-Xptxas -v`)
   3. kernels  each kernel against its plain torch version on the card,
@@ -18,11 +18,17 @@ Phases:
               constraints): compile once, answer 3 prove requests (fresh
               witness, fresh r and s), verify each, reject a fuzzed input;
               launch counters zeroed before the requests and read after
-              (every Groth16 kernel, the fold K9 included, must launch;
-              K1, K3 and K4 launches by batch width are printed);
-              then one more request under torch.profiler (device busy
-              share, device time by kernel, host launches and syncs;
-              `openzl_tpu_torch.utils.profile`)
+              (every Groth16 kernel, the fold K9 and K3's lifted scan
+              included, must launch; K1, K3, K4 and scan launches by batch
+              width are printed); then one more request under
+              torch.profiler (device busy share, device time by kernel,
+              host launches and syncs; `openzl_tpu_torch.utils.profile`),
+              and one more whose lifted scans' inputs are kept (the chunk
+              totals of the G1 and the G2 MSM; their lengths are printed)
+  5b. scan    K3's lifted scan against its plain version on those two
+              inputs (kernel and plain ms, bit-exact) and at the chunk
+              edge sizes l = 1, 3, r - 1, r, r + 1, 5 r + 3 over G1 and G2
+              with no, all and random flags
   6. hash     K5, K6 and K7 against their plain versions at batch 2^16
               (BN254 Fr, width 3, bit-exact), both K5 variants (wide and
               split) at B = 1, 2, 3, 127, 128, 129, 2047, 2048, 16895,
@@ -198,11 +204,29 @@ EC_PRODUCTS = {("add", 1): (11, 5), ("madd", 1): (7, 4), ("dbl", 1): (2, 5),
                ("add", 2): (43, 0), ("madd", 2): (29, 0), ("dbl", 2): (16, 0)}
 
 
-def _check(name, results, got, exp, ms, plain_ms, shape, work):
+def _device_ms(fn, reps: int):
+    """Device time per call of fn on the card (torch.profiler: its kernels'
+    durations summed over reps calls, over reps), without the host's cost
+    of a launch; None off the card."""
+    import torch
+
+    from openzl_tpu_torch.utils import profile as prof
+
+    if not torch.cuda.is_available():
+        return None
+    fn()
+    report = prof.profile(lambda: [fn() for _ in range(reps)])
+    return sum(ms for ms, _, _ in report.kernels) / reps
+
+
+def _check(name, results, got, exp, ms, plain_ms, shape, work, kern=None):
     """Record one kernel comparison; `work` = (word products, bytes) the
-    call needs, each input read once and each output written once."""
+    call needs, each input read once and each output written once. With
+    `kern`, also print the device time of one call of it."""
     err = _max_err(got, exp)
-    log(f"[kernels] {name} {shape}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    dms = _device_ms(kern, 10) if kern is not None else None
+    device = f" (device {dms:.4f} ms)" if dms is not None else ""
+    log(f"[kernels] {name} {shape}: max_abs_err {err}, kernel {ms:.4f} ms{device}, plain {plain_ms:.4f} ms")
     if err:
         fail(f"{name} disagrees with its plain version")
     results.setdefault(name, []).append((err, ms, plain_ms, work, shape))
@@ -274,7 +298,7 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
         ms = _time(lambda: ntt_kernel.mont_mul(spec, a, b), 50, dev)
         pms = _time(lambda: ntt_kernel.mont_mul_plain(spec, a, b), 3, dev)
         _check("mont_mul", results, [got], [exp], ms, pms, f"{spec.name} mul (n={n})",
-               (_mont_words(spec.n_limbs, n), 3 * n * spec.n_limbs * 4))
+               (_mont_words(spec.n_limbs, n), 3 * n * spec.n_limbs * 4), lambda: ntt_kernel.mont_mul(spec, a, b))
     s = _rand_field(BN254_FR, 4, rng, dev)[:, 3:4].contiguous()
     a = _rand_field(BN254_FR, n, rng, dev)
     got = ntt_kernel.mont_scale(BN254_FR, a, s)
@@ -282,7 +306,7 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
     ms = _time(lambda: ntt_kernel.mont_scale(BN254_FR, a, s), 50, dev)
     pms = _time(lambda: ntt_kernel.mont_mul_plain(BN254_FR, a, s), 3, dev)
     _check("mont_mul", results, [got], [exp], ms, pms, f"bn254_fr scale (n={n})",
-           (_mont_words(16, n), 2 * n * 16 * 4 + 16 * 4))
+           (_mont_words(16, n), 2 * n * 16 * 4 + 16 * 4), lambda: ntt_kernel.mont_scale(BN254_FR, a, s))
 
     # K2: every (M, lanes, post-twiddle) launch of the 2^log_n NTT plan
     node, _ = ntt._fourstep_plan(BN254_FR, log_n, False, 1, dev)
@@ -301,7 +325,7 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
         products = lanes * (M // 2 * stages + (M if level_tw is not None else 0))
         moved = (2 + (level_tw is not None)) * M * lanes * 16 * 4 + stages * M // 2 * 16 * 4
         _check("small_ntt", results, [got], [exp], ms, pms, f"M={M} lanes={lanes} {post}",
-               (_mont_words(16, products), moved))
+               (_mont_words(16, products), moved), lambda: ntt_kernel.small_ntt(BN254_FR, x, stage_tw, level_tw))
         nt, c, node = nt // M, c * M, inner
 
     # K3 / K4 over BN254 G1 and G2 at 2^log_m points
@@ -324,7 +348,7 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
             words = _mont_words(n_limbs, m * prod + min(256, m) * dprod, m * sqr + min(256, m) * dsqr)
             coords = (6 + 3) if op != "dbl" else (3 + 3)
             _check(kname, results, list(got), list(exp), ms, pms, f"{curve.name} {op} (n={m})",
-                   (words, coords * ext * n_limbs * m * 4))
+                   (words, coords * ext * n_limbs * m * 4), kern)
     return results
 
 
@@ -357,6 +381,25 @@ def phase_roundtrip(chain: int = 2, device="cuda"):
         fail("round-trip proof did not verify")
     log(f"[roundtrip] {chain} links, {cs.num_constraints} constraints: "
         f"ProvingKey ({len(out[device][0])} B) and Proof bytes identical on {device} and cpu")
+
+
+def _record_scans(fn):
+    """Run fn with K3's lifted scan recording its inputs; returns [(curve,
+    totals, tflag)] of each call, in call order."""
+    from openzl_tpu_torch.ops import ec_kernel
+
+    real, seen = ec_kernel.lifted_scan, []
+
+    def recording(curve, totals, tflag, *rest):
+        seen.append((curve, tuple(t.clone() for t in totals), tflag.clone()))
+        return real(curve, totals, tflag, *rest)
+
+    ec_kernel.lifted_scan = recording
+    try:
+        fn()
+    finally:
+        ec_kernel.lifted_scan = real
+    return seen
 
 
 def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
@@ -407,7 +450,7 @@ def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
     peak = f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB" if cuda else "not measured"
     log(f"[slice] launches during the {proofs} proves: {launches}; peak device memory {peak}")
     for k in kernels:
-        if k.name in ("mont_mul", "ec_add", "ec_dbl"):
+        if k.name in ("mont_mul", "ec_add", "ec_dbl", "ec_lifted_scan"):
             log(f"[slice] {k.name} launches by batch (rounded up to a power of two): "
                 + ", ".join(f"{w}: {n}" for w, n in sorted(k.by_width.items())))
     before = {k.name: k.launches for k in kernels}
@@ -431,7 +474,93 @@ def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
 
     z_can = limb.tensor(calc.evaluate_limbs([digest], witness), g16.device)
     b2_fold = msm.fold_inputs(g16.pairing.g2, [(z_can, pk.b_g2_query)])
-    return launches, walls, b2_fold
+    scans = _record_scans(request)
+    log("[slice] the lifted scans of one more request: " + ", ".join(
+        f"{curve.name} l = {tflag.shape[0]} ({int(tflag.sum())} flagged)" for curve, _, tflag in scans))
+    return launches, walls, b2_fold, scans
+
+
+def _scan_adds(tflag, r: int) -> int:
+    """The full adds the lifted scan's function needs on these flags, as a
+    scan in chunks of r at every level does them: phase 1 adds an unflagged
+    element to its chunk's running sum (past the chunk's first element,
+    whose running sum is the identity), phase 3 adds its chunk's offset to
+    an element past the chunk's first whose prefix within the chunk is
+    unflagged, and the chunk totals' flags are the next level's. The
+    shipped scan's Hillis-Steele steps on its narrow levels do more; the
+    bound takes this least count."""
+    import torch
+
+    adds, f = 0, tflag
+    while True:
+        n = f.shape[0]
+        m = -(-n // r)
+        grid = torch.cat([f, f.new_zeros(m * r - n)]).reshape(m, r)
+        valid = (torch.arange(m * r, device=f.device) < n).reshape(m, r)
+        valid[:, 0] = False
+        adds += int((valid & ~grid).sum())
+        if m == 1:
+            return adds
+        pre = torch.cat([grid.new_zeros((m, 1)), grid[:, :-1].to(torch.int8).cummax(dim=1).values.bool()], dim=1)
+        adds += int((valid & ~pre).sum())
+        f = grid.any(dim=1)
+
+
+def phase_scan(scans, device="cuda", reps: int = 20, seed: int = 5):
+    """Phase 5b: K3's lifted scan against its plain version on the request's
+    inputs and at the chunk edge sizes. Returns the kernel results."""
+    import torch
+
+    from openzl_tpu_torch.curves import jacobian as jac
+    from openzl_tpu_torch.ops import ec_kernel
+    from openzl_tpu_torch.tools.kernel_probe import hillis_steele_scan
+
+    dev = torch.device(device)
+    results = {}
+    R = ec_kernel.SCAN_R
+    # the G2 (B2) scan first: its row leads the kernels line
+    for curve, totals, tflag in sorted(scans, key=lambda s: -s[0].ext):
+        got = ec_kernel.lifted_scan(curve, totals, tflag)
+        exp = ec_kernel.lifted_scan_plain(curve, totals, tflag)
+        ms = _time(lambda: ec_kernel.lifted_scan(curve, totals, tflag), reps, dev)
+        pms = _time(lambda: ec_kernel.lifted_scan_plain(curve, totals, tflag), 1, dev)
+        # the Hillis-Steele scan through K3 that it replaced: the same group
+        # elements, associated otherwise
+        old = hillis_steele_scan(curve, totals, tflag)
+        if not all(torch.equal(a, b) for a, b in zip(jac.normalize(curve, jac.JPoint(*old)),
+                                                       jac.normalize(curve, jac.JPoint(*got)))):
+            fail(f"K3's lifted scan and the Hillis-Steele scan disagree on {curve.name}")
+        old_ms = _time(lambda: hillis_steele_scan(curve, totals, tflag), 2, dev)
+        old_dms = _device_ms(lambda: hillis_steele_scan(curve, totals, tflag), 2)
+        log(f"[scan] {curve.name} l={tflag.shape[0]}: the Hillis-Steele scan through K3 it replaced takes "
+            f"{old_ms:.4f} ms" + (f" (device {old_dms:.4f} ms)" if old_dms is not None else "")
+            + "; the same group elements")
+        l, adds = tflag.shape[0], _scan_adds(tflag, R)
+        prod, sqr = EC_PRODUCTS["add", curve.ext]
+        coord = curve.ext * curve.base.n_limbs * 4
+        _check("ec_lifted_scan", results, list(got), list(exp), ms, pms,
+               f"{curve.name} chunk totals of the request (l={l}, r={R}, {adds} adds)",
+               (_mont_words(curve.base.n_limbs, adds * prod, adds * sqr), l * (6 * coord + 1)),
+               lambda: ec_kernel.lifted_scan(curve, totals, tflag))
+    rng = random.Random(seed)
+    sizes = sorted({1, 3, R - 1, R, R + 1, 5 * R + 3})
+    for curve, totals, _ in scans:
+        pool = jac.JPoint(*(v[..., :64] for v in totals))
+        for l in sizes:
+            for mode in ("none", "all", "random"):
+                P = jac.take(pool, torch.tensor([rng.randrange(pool.z.shape[-1]) for _ in range(l)], device=dev))
+                flags = torch.tensor([mode == "all" or (mode == "random" and rng.random() < 0.3)
+                                      for _ in range(l)], device=dev)
+                for narrow in (0, ec_kernel.SCAN_NARROW):
+                    got = ec_kernel.lifted_scan(curve, tuple(P), flags, narrow=narrow)
+                    exp = ec_kernel.lifted_scan_plain(curve, tuple(P), flags, narrow=narrow)
+                    if _max_err(got, exp):
+                        fail(f"K3's lifted scan disagrees with its plain version: {curve.name}, l={l}, "
+                             f"{mode} flags, narrow={narrow}")
+    log(f"[scan] K3's lifted scan equals its plain version at l = {', '.join(map(str, sizes))} "
+        f"(r = {R}) with no, all and random flags, in chunks and in Hillis-Steele steps, over "
+        f"{', '.join(c.name for c, _, _ in scans)}")
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -570,7 +699,7 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
         prod, sqr = products[name]
         _check(name, results, [got], [exp], ms, pms,
                f"bn254_fr width 3 (B={B}, {prod} products + {sqr} squares per state)",
-               (_mont_words(16, B * prod, B * sqr), 2 * x.numel() * 4))
+               (_mont_words(16, B * prod, B * sqr), 2 * x.numel() * 4), kern)
         plain_out[name] = (exp, pms)
 
     # both K5 variants at the batch sizes around a block of 128 states, a
@@ -705,7 +834,7 @@ def _fold_check(name, results, curve, fold_in, device, reps):
     moved = E * 16 + pts.x.shape[-1] * 2 * coord + l * (3 * coord + 1) + width * (3 * coord + 9)
     _check("fold_madd", results, flat(got), flat(exp), ms, pms,
            f"{name}: {E} entries, r={r}, {l} chunks, c={c}, {W} windows, {starts} segments",
-           (_mont_words(n_limbs, (E - starts) * prod, (E - starts) * sqr), moved))
+           (_mont_words(n_limbs, (E - starts) * prod, (E - starts) * sqr), moved), lambda: ec_kernel.fold_madd(*args))
 
 
 def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int = 20, log_mul: int = 11,
@@ -740,7 +869,8 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
         pms = _time(lambda: ntt_kernel.stage_plain(spec, x, table, 5), 3, dev)
         half = (batch << log_n) // 2
         _check("butterfly", results, [got], [exp], ms, pms, f"bn254_fr stage 5 of 2^{log_n} (batch {batch})",
-               (_mont_words(16, half), (4 * half + (1 << log_n) // 2) * 16 * 4))
+               (_mont_words(16, half), (4 * half + (1 << log_n) // 2) * 16 * 4),
+               lambda: ntt_kernel.stage(spec, x, table, 5))
 
     # both NTT routes below the four-step threshold
     for log_n in (10, 12):
@@ -853,13 +983,15 @@ def main() -> None:
 
     from openzl_tpu_torch.ops import ec_kernel, ntt_kernel, poseidon2_kernel, poseidon_kernel
 
-    groth16_kernels = [ntt_kernel.K1, ntt_kernel.K2, ec_kernel.K3, ec_kernel.K4, ec_kernel.K9]
+    groth16_kernels = [ntt_kernel.K1, ntt_kernel.K2, ec_kernel.K3, ec_kernel.K4, ec_kernel.K9, ec_kernel.K3S]
     hash_kernels = [poseidon_kernel.K5, poseidon_kernel.K6, poseidon2_kernel.K7]
     kzg_kernels = [ntt_kernel.K8]
-    kernels = [*groth16_kernels[:4], *hash_kernels, ntt_kernel.K8, ec_kernel.K9]
+    kernels = [*groth16_kernels[:4], *hash_kernels, ntt_kernel.K8, ec_kernel.K9, ec_kernel.K3S]
     results = phase_kernels()
     phase_roundtrip()
-    launches, _, b2_fold = phase_slice(args.chain, args.proofs, kernels, groth16_kernels)
+    launches, _, b2_fold, scans = phase_slice(args.chain, args.proofs, kernels, groth16_kernels)
+    results.update(phase_scan(scans))
+    del scans  # the request's chunk totals (86 MB at 512 links) stay out of the later phases' peaks
     hash_results, hash_launches = phase_hash(kernels)
     results.update(hash_results)
     launches = {**launches, **{k.name: hash_launches[k.name] for k in hash_kernels}}
@@ -886,6 +1018,14 @@ def main() -> None:
         t_ops, t_bytes = work[0] / products_per_s * 1e3, work[1] / 3.35e12 * 1e3
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
+    # the repo's TPU experiments, which no path of either package runs
+    # (PERF.md rows #12-#14): #12 computes K5's function at B = 2^16 (K5's
+    # bound above); #13 and #14 move uint32 arrays, each read and written once
+    for label, shape in (("#13 experiments/rowshuffle_probe.py kernel", (16, 64, 128)),
+                         ("#13 experiments/rowshuffle_probe.py tiny", (16, 1024, 128)),
+                         ("#14 experiments/dif_probe.py kernel_A, kernel_C", (4, 512, 128))):
+        moved = 2 * 4 * shape[0] * shape[1] * shape[2]
+        log(f"[bound] {label} on {shape}: {moved} bytes, bound {bound((0, moved))[0]:.6f} ms (bytes)")
     for name, runs in results.items():
         for _, ms, _, work, shape in runs:
             b_ms, b_by = bound(work)

@@ -16,11 +16,12 @@ mixed add), K4 (double) and K9 (the sorted-chunk fold):
      to 32, as the reference picks it; the tail is padded with a dump key)
      with mixed adds, gathering each entry's point by index, and writes the
      prefix of every segment tail into its bucket slot; a lifted segmented
-     scan over the chunk totals (K3) gives each chunk's exclusive offset,
-     and one bucket-width gather and lifted K3 combine add the offsets of
-     buckets whose segment started in an earlier chunk, into a dense
-     (S W 2^c) bucket array. Nothing between the sort and step 4 reads a
-     value back to the host;
+     scan over the chunk totals (K3's scan variant, work-efficient as the
+     reference's chunked scan) gives each chunk's exclusive offset, and one
+     bucket-width gather and lifted K3 combine add the offsets of buckets
+     whose segment started in an earlier chunk, into a dense (S W 2^c)
+     bucket array. Nothing between the sort and step 4 reads a value back
+     to the host;
   4. window sums sum_d d B_d by binary decomposition: for each bit k the
      buckets whose digit has bit k set are tree-reduced, then
      sum_k 2^k T_k by doubling;
@@ -40,7 +41,6 @@ from ..fields.spec import LIMB_BITS
 from ..curves import jacobian as jac
 from ..curves.jacobian import JPoint
 from . import ec_kernel
-from .scan_utils import inclusive_scan
 
 
 def default_window_bits(n: int, total_bits: int = 254) -> int:
@@ -121,22 +121,11 @@ def _bucket_totals(curve: CurveSpec, pts: JPoint, keys, pidx, r: int, n_buckets:
     if keys.shape[0] == 0:
         return jac.identity(curve, (n_buckets,), dev)
     totals, tflag, bv, bflag, bchunk = ec_kernel.fold_madd(curve, pts, keys, pidx, r, n_buckets + 1)
-    l = tflag.shape[0]
-
-    def lifted(a, b):
-        """(value, segment-started flag) monoid: b's value alone once b's
-        segment has started, else a + b."""
-        merged = jac.add(curve, JPoint(*a[:3]), JPoint(*b[:3]))
-        return (*jac.select(b[3], JPoint(*b[:3]), merged), a[3] | b[3])
-
-    def pad(k):
-        return (*jac.identity(curve, (k,), dev), torch.zeros(k, dtype=torch.bool, device=dev))
-
-    incl = inclusive_scan(lifted, (*totals, tflag), pad)
-    excl = tuple(torch.cat([p, v[..., : l - 1]], dim=-1) for p, v in zip(pad(1), incl))
-    offsets = tuple(v[..., bchunk] for v in excl)
-    total = lifted(offsets, (*bv, bflag))
-    return JPoint(*(v[..., :n_buckets] for v in total[:3]))
+    excl = ec_kernel.lifted_scan(curve, totals, tflag)
+    offsets = JPoint(*(v[..., bchunk] for v in excl))
+    # lifted: a bucket whose segment started in its tail's chunk is complete
+    total = jac.select(bflag, JPoint(*bv), jac.add(curve, offsets, JPoint(*bv)))
+    return JPoint(*(v[..., :n_buckets] for v in total))
 
 
 def _tree_sum(curve: CurveSpec, P: JPoint) -> JPoint:

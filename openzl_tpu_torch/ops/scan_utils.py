@@ -2,9 +2,11 @@
 
 Port of `openzl_tpu/ops/scan_utils.py`, written as plain torch log-step
 (Hillis-Steele) scans: ceil(log2 N) full-width combines, each one batched
-call of the combine function (which may launch a kernel). The reference's
-chunked three-phase scan existed to keep XLA graphs small; eager PyTorch
-has no graph to keep small.
+call of the combine function (which may launch a kernel), N log2 N
+combines of work. The MSM's scan of its chunk totals, where that work is
+what costs on the card, runs the reference's work-efficient chunked shape
+instead, as K3's scan variant (`ops/ec_kernel.lifted_scan`); this module
+serves the prefix products of `curves/jacobian.batch_inv`.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
-"""Measurements behind K5's and K9's design choices, on one GPU.
+"""Measurements behind K3's, K4's, K5's and K9's design choices, on one GPU.
 
-    python3 -m openzl_tpu_torch.tools.kernel_probe
+    python3 -m openzl_tpu_torch.tools.kernel_probe [part ...]
 
-Prints, on the card it runs on:
+Parts (all by default): microbench, k5, k9, k3, scan. Prints, on the card
+it runs on:
   * `field_microbench.cu` (built here with nvcc): latency and throughput of
     the F1 and F1c field operations and of one G1 mixed add, and K5's
     split rounds at 32, 64 and 128 threads a block; then the instruction
@@ -16,7 +17,15 @@ Prints, on the card it runs on:
     memory instead of the cp.async ring, and without the tail stores
     (which gives wrong buckets: timing only). Each build is held against
     the shipped one (chunk totals; buckets too where the tail stores are
-    kept).
+    kept);
+  * K3 (add, madd) and K4 over G1 and G2 at 2^16 points, from builds of
+    `csrc/ec_kernel.cu` with other block sizes and launch bounds, each held
+    against the shipped build;
+  * K3's lifted scan on the chunk totals of the two K9 folds above, at
+    chunk lengths r = 4 to 16 and bounds of its Hillis-Steele levels, with
+    the device time of each kernel (torch.profiler), against the
+    Hillis-Steele scan through K3 that it replaced (the same group
+    elements; compared affine).
 Builds go to `build/kernel_probe/` beside the kernel library. Exits non-zero
 without a card.
 """
@@ -34,12 +43,13 @@ import numpy as np
 import torch
 
 from ..curves import jacobian as jac
+from ..curves.jacobian import JPoint
 from ..fields import limb
 from ..fields.spec import BN254_FR
 from ..ops import ec_kernel, msm, poseidon_kernel
 from ..crypto.poseidon.permutation import Poseidon
 from ..proof_systems import BN254, KZG
-from ..utils import build
+from ..utils import build, profile
 
 HERE = pathlib.Path(__file__).resolve().parent
 OUT = build.BUILD_DIR.parent / "kernel_probe"
@@ -47,6 +57,17 @@ OUT = build.BUILD_DIR.parent / "kernel_probe"
 #: (threads a block, least blocks per SM over Fq, over Fq2); the first is
 #: what fold_kernel.cu ships
 FOLD_BOUNDS = [(128, 4, 2), (128, 3, 3), (64, 8, 4), (64, 6, 4), (32, 16, 8), (32, 12, 8)]
+#: the same for K3 and K4 (ec_kernel.cu), whether Fq2 products reduce
+#: each component once (`kLazyFq2`), and the base field (F1c, or PR 1's F1);
+#: the first is what it ships
+EC_BUILDS = [(128, 2, 1, True, "F1c"), (128, 3, 2, True, "F1c"), (128, 4, 2, True, "F1c"),
+             (128, 2, 1, False, "F1c"), (128, 2, 1, False, "F1")]
+#: the base field's names in ec_kernel.cu
+EC_FIELD = ("using G1F = F1c<8>;", "using G2F = F2<8, F1c<8>, kLazyFq2>;", "params1<8, F1c<8>>",
+            "params2<8, F1c<8>, kLazyFq2>")
+#: (chunk length, narrow-level bound) of the lifted scan swept
+SCAN_SHAPES = [(2, 16384), (4, 0), (4, 4096), (4, 16384), (4, 32768), (8, 16384)]
+PARTS = ("microbench", "k5", "k9", "k3", "scan")
 DIRECT_SRC = """template <class T>
 struct DirectRead {
   static constexpr int PW = 2 * (int)(sizeof(T) / sizeof(uint32_t));
@@ -113,25 +134,62 @@ def _fold_sources() -> dict:
     return builds
 
 
-def _start_builds():
-    """Start nvcc for the microbenchmark and every K9 build; returns the
-    processes by name with their outputs."""
+def _ec_sources() -> dict:
+    """name -> ec_kernel.cu text of each K3 / K4 build to time."""
+    src = (build.CSRC / "ec_kernel.cu").read_text()
+
+    def knobs(t, g1, g2, lazy):
+        return (f"constexpr int kThreads = {t};\nconstexpr int kMinBlocksG1 = {g1};\n"
+                f"constexpr int kMinBlocksG2 = {g2};", f"constexpr bool kLazyFq2 = {str(lazy).lower()};")
+
+    shipped = knobs(*EC_BUILDS[0][:4])
+    if not all(k in src for k in shipped + EC_FIELD) or EC_BUILDS[0][4] != "F1c":
+        raise RuntimeError("ec_kernel.cu no longer ships the first of EC_BUILDS")
+    builds = {}
+    for t, g1, g2, lazy, field in EC_BUILDS:
+        text = src
+        for old, new in zip(shipped, knobs(t, g1, g2, lazy)):
+            text = text.replace(old, new)
+        if field == "F1":
+            for old, new in zip(EC_FIELD, ("using G1F = F1<8>;", "using G2F = F2<8, F1<8>>;", "params1<8, F1<8>>",
+                                           "params2<8, F1<8>>")):
+                text = text.replace(old, new)
+        builds[f"{field}, {t} threads, {g1} / {g2} blocks per SM{', lazy Fq2 products' if lazy else ''}"] = text
+    return builds
+
+
+def _start_builds(parts):
+    """Start nvcc for the microbenchmark, every K9 build and every K3 / K4
+    build that `parts` needs; returns the processes by name (K3 / K4 builds
+    under "ec: <name>") with their outputs."""
     nvcc = build._nvcc()
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    exe = OUT / "field_microbench"
-    procs["microbench"] = (exe, subprocess.Popen(
-        [nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(exe), str(HERE / "field_microbench.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for i, (name, (fold, ec)) in enumerate(_fold_sources().items()):
-        d = OUT / f"fold_{i}"
-        d.mkdir(exist_ok=True)
-        (d / "fold_kernel.cu").write_text(fold)
-        (d / "ec.cuh").write_text(ec)
-        so = d / "fold.so"
-        procs[name] = (so, subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-I", str(d), "-I", str(build.CSRC), "-shared", "-o", str(so),
-             str(d / "fold_kernel.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    def start(name, out, cmd):
+        procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    if "microbench" in parts:
+        exe = OUT / "field_microbench"
+        start("microbench", exe, [nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(exe),
+                                  str(HERE / "field_microbench.cu")])
+    if "k9" in parts:
+        for i, (name, (fold, ec)) in enumerate(_fold_sources().items()):
+            d = OUT / f"fold_{i}"
+            d.mkdir(exist_ok=True)
+            (d / "fold_kernel.cu").write_text(fold)
+            (d / "ec.cuh").write_text(ec)
+            so = d / "fold.so"
+            start(name, so, [nvcc, *build.NVCC_FLAGS, "-I", str(d), "-I", str(build.CSRC), "-shared", "-o",
+                             str(so), str(d / "fold_kernel.cu")])
+    if "k3" in parts:
+        for i, (name, src) in enumerate(_ec_sources().items()):
+            d = OUT / f"ec_{i}"
+            d.mkdir(exist_ok=True)
+            (d / "ec_kernel.cu").write_text(src)
+            so = d / "ec.so"
+            start(f"ec: {name}", so, [nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-shared", "-o", str(so),
+                                      str(d / "ec_kernel.cu")])
     return procs
 
 
@@ -173,17 +231,20 @@ def k5_sweep(dev, rng) -> None:
             f"{poseidon_kernel.variant(B)}")
 
 
-class _WithFold:
-    """The kernel library with another build's K9 entry point."""
+class _With:
+    """The kernel library with some entry points from another build."""
 
-    def __init__(self, main, fold):
-        self.main, self.ozl_fold_madd = main, fold
+    def __init__(self, main, **fns):
+        self.main = main
+        self.__dict__.update(fns)
 
     def __getattr__(self, name):
         return getattr(self.main, name)
 
 
-def k9_builds(procs, dev, rng) -> None:
+def _fold_cases(dev, rng):
+    """The fold arguments of the G1 fold of a 2^16-point KZG commit and a G2
+    fold of 120,323 random points with 120-bit scalars."""
     g1, g2 = BN254.g1, BN254.g2
     params = KZG(BN254, backend="device", device=dev).setup((1 << 16) - 1, random.Random(7))
     s1 = limb.tensor(limb.pack(g1.scalar, [rng.randrange(g1.scalar.modulus) for _ in range(1 << 16)]), dev)
@@ -196,24 +257,34 @@ def k9_builds(procs, dev, rng) -> None:
     cases = []
     for name, curve, job in (("G1 commit of 2^16", g1, (s1, params.powers_g1)), (f"G2 of {n2} points", g2, (s2, P2))):
         pts, keys, pidx, r, c, W = msm.fold_inputs(curve, [job])
-        args = (curve, pts, keys, pidx, r, (W << c) + 1)
+        cases.append((name, curve, (curve, pts, keys, pidx, r, (W << c) + 1)))
+    return cases
+
+
+def k9_builds(procs, cases, dev) -> None:
+    timed = []
+    for name, curve, args in cases:
+        _, pts, keys, _, r, width = args
         want = ec_kernel.fold_madd(*args)
-        reps = 20 if curve is g1 else 5
+        reps = 20 if curve is BN254.g1 else 5
         copy = _timed(lambda: ec_kernel.point_words(curve, pts), reps)
-        init = _timed(lambda: ec_kernel._fold_outputs(curve, keys.numel() // r, (W << c) + 1, dev), reps)
+        init = _timed(lambda: ec_kernel._fold_outputs(curve, keys.numel() // r, width, dev), reps)
         fold = [_timed(lambda: ec_kernel.fold_madd(*args), reps) for _ in range(2)]
         log(f"[k9] {name}: {keys.numel()} entries, r={r}; shipped build {fold[0]:.4f} / {fold[1]:.4f} ms "
             f"(of which the point-major copy {copy:.4f} ms, the output initialisation {init:.4f} ms)")
-        cases.append((name, args, want, reps))
+        timed.append((name, args, want, reps))
+    cases = timed
     main = build.lib()
     flat = lambda o: [*o[0], o[1], *o[2], o[3], o[4]]
     try:
         for name, (so, proc) in procs.items():
+            if name == "microbench" or name.startswith("ec: "):
+                continue
             regs = _ptxas(_finish(proc, name))
             lib = ctypes.CDLL(str(so))
             fn = lib.ozl_fold_madd
             fn.argtypes, fn.restype = build._SIGNATURES["ozl_fold_madd"], ctypes.c_int
-            build.lib = lambda fn=fn: _WithFold(main, fn)
+            build.lib = lambda fn=fn: _With(main, ozl_fold_madd=fn)
             cols = []
             for case, args, want, reps in cases:
                 got = ec_kernel.fold_madd(*args)
@@ -226,19 +297,141 @@ def k9_builds(procs, dev, rng) -> None:
         build.lib = lambda: main
 
 
+def _ec_points(curve, n, dev, seed):
+    """(P Jacobian with random Z, Q Jacobian, Q normalized): sums of random
+    pairs of 64 fixed-base multiples, with rows where P = Q and P = -Q."""
+    rng = random.Random(seed)
+    base = jac.normalize(curve, msm.fixed_base_msm(curve, limb.tensor(limb.pack(
+        curve.scalar, [rng.randrange(1, curve.scalar.modulus) for _ in range(64)]), dev)))
+    npr = np.random.default_rng(seed)
+    pick = [torch.as_tensor(npr.integers(0, 64, n), device=dev) for _ in range(4)]
+    P = jac.add(curve, jac.take(base, pick[0]), jac.double(curve, jac.take(base, pick[1])))
+    Q = jac.add(curve, jac.take(base, pick[2]), jac.take(base, pick[3]))
+    Q = JPoint(*(torch.cat([a[..., :256], b[..., 256:]], dim=-1) for a, b in zip(P, Q)))
+    Q = jac.select(torch.arange(n, device=dev) % 1000 == 999, jac.negate(curve, P), Q)
+    return P, Q, jac.normalize(curve, Q)
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device time per call of fn (torch.profiler: the sum of its kernels'
+    durations over reps calls, divided by reps): the launch's host cost,
+    which is of the order of a G1 kernel's own time, is left out."""
+    fn()
+    report = profile.profile(lambda: [fn() for _ in range(reps)])
+    return sum(ms for ms, _, _ in report.kernels) / reps
+
+
+def k3_builds(procs, dev) -> None:
+    """K3 add and madd and K4 over G1 and G2 at 2^16 points, every build:
+    device ms per launch, each build timed twice, in turns (builds in order,
+    then in reverse), so that a drift of the card's clock shows."""
+    n = 1 << 16
+    cases = []
+    for curve in (BN254.g1, BN254.g2):
+        P, Q, Qa = _ec_points(curve, n, dev, 5)
+        cases += [
+            (f"{curve.name} add", lambda c=curve, P=P, Q=Q: ec_kernel.ec_add(c, tuple(P), tuple(Q))),
+            (f"{curve.name} madd", lambda c=curve, P=P, Qa=Qa: ec_kernel.ec_add(c, tuple(P), tuple(Qa), True)),
+            (f"{curve.name} dbl", lambda c=curve, P=P: ec_kernel.ec_dbl(c, tuple(P))),
+        ]
+    want = [fn() for _, fn in cases]
+    main = build.lib()
+    libs = {}
+    for name, (so, proc) in procs.items():
+        if not name.startswith("ec: "):
+            continue
+        regs = _ptxas(_finish(proc, name))
+        lib = ctypes.CDLL(str(so))
+        fns = {}
+        for entry in ("ozl_ec_add", "ozl_ec_dbl"):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = build._SIGNATURES[entry], ctypes.c_int
+            fns[entry] = fn
+        libs[name[4:]] = (regs, fns)
+    times = {name: {case: [] for case, _ in cases} for name in libs}
+    try:
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                build.lib = lambda fns=libs[name][1]: _With(main, **fns)
+                for (case, fn), w in zip(cases, want):
+                    if not all(torch.equal(a, b) for a, b in zip(fn(), w)):
+                        raise RuntimeError(f"the {name} build's {case} differs from the shipped build's")
+                    times[name][case].append(_device_ms(fn, 20))
+    finally:
+        build.lib = lambda: main
+    for name, (regs, _) in libs.items():
+        log(f"[k3] {name} (registers, spill bytes per entry function: {regs}): device ms per launch "
+            + "; ".join(f"{case} {t[0]:.4f} / {t[1]:.4f}" for case, t in times[name].items()))
+
+
+def hillis_steele_scan(curve, totals, tflag):
+    """The exclusive lifted scan as the port ran it before K3's scan
+    variant: a Hillis-Steele scan through K3 (ops/scan_utils.py)."""
+    from ..ops.scan_utils import inclusive_scan
+
+    dev = tflag.device
+
+    def lifted(a, b):
+        merged = jac.add(curve, JPoint(*a[:3]), JPoint(*b[:3]))
+        return (*jac.select(b[3], JPoint(*b[:3]), merged), a[3] | b[3])
+
+    def pad(k):
+        return (*jac.identity(curve, (k,), dev), torch.zeros(k, dtype=torch.bool, device=dev))
+
+    incl = inclusive_scan(lifted, (*totals, tflag), pad)
+    return tuple(torch.cat([p, v[..., :-1]], dim=-1) for p, v in zip(pad(1), incl[:3]))
+
+
+def scan_sweep(cases) -> None:
+    """K3's lifted scan over the chunk totals of each fold case, at each
+    chunk length, against the Hillis-Steele scan it replaced."""
+    for name, curve, args in cases:
+        totals, tflag = ec_kernel.fold_madd(*args)[:2]
+        l = tflag.shape[0]
+        old = hillis_steele_scan(curve, totals, tflag)
+        want = jac.normalize(curve, JPoint(*old))
+        t_old = _timed(lambda: hillis_steele_scan(curve, totals, tflag), 3)
+        log(f"[scan] {name}: l = {l} chunk totals, {int(tflag.sum())} flagged; Hillis-Steele through K3 "
+            f"{t_old:.4f} ms")
+        for r, narrow in SCAN_SHAPES:
+            got = jac.normalize(curve, JPoint(*ec_kernel.lifted_scan(curve, totals, tflag, r, narrow)))
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            before = ec_kernel.K3S.launches
+            t = [_timed(lambda: ec_kernel.lifted_scan(curve, totals, tflag, r, narrow), 10) for _ in range(2)]
+            launches = (ec_kernel.K3S.launches - before) // 22
+            report = profile.profile(lambda: ec_kernel.lifted_scan(curve, totals, tflag, r, narrow))
+            log(f"[scan]   r={r}, narrow={narrow}: {t[0]:.4f} / {t[1]:.4f} ms, device busy {report.busy_ms:.4f} ms "
+                f"({launches} launches){'' if same else ' DIFFERS'}; device ms by kernel: "
+                + ", ".join(f"{k.split('<')[0].split('::')[-1]} {ms:.4f} ({n})" for ms, n, k in report.kernels))
+            if not same:
+                raise RuntimeError(f"the lifted scan at r={r}, narrow={narrow} gives other group elements")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe needs a GPU")
+    parts = sys.argv[1:] or list(PARTS)
+    unknown = sorted(set(parts) - set(PARTS))
+    if unknown:
+        sys.exit(f"unknown parts {unknown}; parts are {', '.join(PARTS)}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log(f"[device] {smi}")
-    procs = _start_builds()
+    procs = _start_builds(parts)
     build.lib()
-    exe, proc = procs.pop("microbench")
-    microbench(exe, _finish(proc, "microbench"))
+    if "microbench" in parts:
+        exe, proc = procs.pop("microbench")
+        microbench(exe, _finish(proc, "microbench"))
     dev, rng = torch.device("cuda"), random.Random(1)
-    k5_sweep(dev, rng)
-    k9_builds(procs, dev, rng)
+    if "k5" in parts:
+        k5_sweep(dev, rng)
+    cases = _fold_cases(dev, rng) if {"k9", "scan"} & set(parts) else []
+    if "k9" in parts:
+        k9_builds(procs, cases, dev)
+    if "k3" in parts:
+        k3_builds(procs, dev)
+    if "scan" in parts:
+        scan_sweep(cases)
 
 
 if __name__ == "__main__":
