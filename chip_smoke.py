@@ -207,7 +207,8 @@ EC_PRODUCTS = {("add", 1): (11, 5), ("madd", 1): (7, 4), ("dbl", 1): (2, 5),
 def _device_ms(fn, reps: int):
     """Device time per call of fn on the card (torch.profiler: its kernels'
     durations summed over reps calls, over reps), without the host's cost
-    of a launch; None off the card."""
+    of a launch; None off the card or when the profiler recorded no
+    kernel."""
     import torch
 
     from openzl_tpu_torch.utils import profile as prof
@@ -216,6 +217,8 @@ def _device_ms(fn, reps: int):
         return None
     fn()
     report = prof.profile(lambda: [fn() for _ in range(reps)])
+    if not report.kernels:
+        return None
     return sum(ms for ms, _, _ in report.kernels) / reps
 
 
@@ -225,7 +228,7 @@ def _check(name, results, got, exp, ms, plain_ms, shape, work, kern=None):
     `kern`, also print the device time of one call of it."""
     err = _max_err(got, exp)
     dms = _device_ms(kern, 10) if kern is not None else None
-    device = f" (device {dms:.4f} ms)" if dms is not None else ""
+    device = "" if kern is None else f" (device {dms:.4f} ms)" if dms is not None else " (device not measured)"
     log(f"[kernels] {name} {shape}: max_abs_err {err}, kernel {ms:.4f} ms{device}, plain {plain_ms:.4f} ms")
     if err:
         fail(f"{name} disagrees with its plain version")
@@ -390,9 +393,9 @@ def _record_scans(fn):
 
     real, seen = ec_kernel.lifted_scan, []
 
-    def recording(curve, totals, tflag, *rest):
+    def recording(curve, totals, tflag):
         seen.append((curve, tuple(t.clone() for t in totals), tflag.clone()))
-        return real(curve, totals, tflag, *rest)
+        return real(curve, totals, tflag)
 
     ec_kernel.lifted_scan = recording
     try:
@@ -544,6 +547,7 @@ def phase_scan(scans, device="cuda", reps: int = 20, seed: int = 5):
                lambda: ec_kernel.lifted_scan(curve, totals, tflag))
     rng = random.Random(seed)
     sizes = sorted({1, 3, R - 1, R, R + 1, 5 * R + 3})
+    shipped = ec_kernel.SCAN_NARROW
     for curve, totals, _ in scans:
         pool = jac.JPoint(*(v[..., :64] for v in totals))
         for l in sizes:
@@ -551,9 +555,14 @@ def phase_scan(scans, device="cuda", reps: int = 20, seed: int = 5):
                 P = jac.take(pool, torch.tensor([rng.randrange(pool.z.shape[-1]) for _ in range(l)], device=dev))
                 flags = torch.tensor([mode == "all" or (mode == "random" and rng.random() < 0.3)
                                       for _ in range(l)], device=dev)
-                for narrow in (0, ec_kernel.SCAN_NARROW):
-                    got = ec_kernel.lifted_scan(curve, tuple(P), flags, narrow=narrow)
-                    exp = ec_kernel.lifted_scan_plain(curve, tuple(P), flags, narrow=narrow)
+                # in chunks (no narrow level) and in Hillis-Steele steps
+                for narrow in (0, shipped):
+                    ec_kernel.SCAN_NARROW = narrow
+                    try:
+                        got = ec_kernel.lifted_scan(curve, tuple(P), flags)
+                        exp = ec_kernel.lifted_scan_plain(curve, tuple(P), flags)
+                    finally:
+                        ec_kernel.SCAN_NARROW = shipped
                     if _max_err(got, exp):
                         fail(f"K3's lifted scan disagrees with its plain version: {curve.name}, l={l}, "
                              f"{mode} flags, narrow={narrow}")

@@ -162,10 +162,10 @@ OZL_HD int word_row(int wi, int ext) {
   return 2 * (wi % NW) * ext + wi / NW;
 }
 
-// Phase 1's tile in shared memory: slot s (thread s / K, column s % K of a
-// round of K columns) holds one element's X, Y and Z words (SW words); a
-// thread's slots span TW words, an odd count, so the threads' slots at one
-// column fall in distinct banks; then one flag byte a slot.
+// Phase 1's tile in shared memory: slot s (thread s / K, element s % K of
+// its chunk) holds one element's X, Y and Z words (SW words); a thread's
+// slots span TW words, an odd count, so the threads' slots at one column
+// fall in distinct banks; then one flag byte a slot.
 template <class T, int THREADS, int K>
 struct ScanTile {
   static constexpr int SW = 3 * (int)(sizeof(T) / sizeof(uint32_t)) + 1;
@@ -173,17 +173,19 @@ struct ScanTile {
   static constexpr size_t bytes = (size_t)THREADS * (TW * sizeof(uint32_t) + K);
 };
 
-// Phase 1 over elements (x, y, z, f) (n): thread c of the scan folds
-// elements c r .. c r + r - 1 into (ax, ay, az, af), from the identity with
-// a false flag, and writes the exclusive prefix of each element within its
-// chunk to (px, py, pz, pf) and the chunk total to (tx, ty, tz, tf) (m =
-// ceil(n / r)). The block stages K columns of its chunks at a time through
-// the tile, consecutive threads on consecutive elements.
+// Phase 1 over elements (x, y, z, f) (n), in chunks of K: thread c of the
+// scan folds elements c K .. c K + K - 1 into (ax, ay, az, af), from the
+// identity with a false flag, and writes the exclusive prefix of each
+// element within its chunk to (px, py, pz, pf) and the chunk total to (tx,
+// ty, tz, tf) (m = ceil(n / K)). The block's tile is one run of
+// consecutive elements (slot s holds element e0 + s), which it loads and
+// stores through shared memory, consecutive threads on consecutive
+// elements.
 template <class F, int NW, int THREADS, int K, class Sync>
 OZL_HD void scan_fold_block(const EcParams<F>& E, int t, int64_t block, Sync& sync,
                             uint32_t* smem, const int32_t* x, const int32_t* y, const int32_t* z,
                             const uint8_t* f, int32_t* px, int32_t* py, int32_t* pz, uint8_t* pf,
-                            int32_t* tx, int32_t* ty, int32_t* tz, uint8_t* tf, int64_t n, int r,
+                            int32_t* tx, int32_t* ty, int32_t* tz, uint8_t* tf, int64_t n,
                             const typename F::T& one) {
   using T = typename F::T;
   using Tile = ScanTile<T, THREADS, K>;
@@ -192,73 +194,64 @@ OZL_HD void scan_fold_block(const EcParams<F>& E, int t, int64_t block, Sync& sy
   constexpr int slots = THREADS * K;
   uint8_t* sflag = reinterpret_cast<uint8_t*>(smem + THREADS * Tile::TW);
   auto slot = [&](int s) { return smem + (s / K) * Tile::TW + (s % K) * Tile::SW; };
-  const int64_t m = (n + r - 1) / r;
-  const int64_t c0 = block * THREADS;
+  const int64_t m = (n + K - 1) / K;
+  const int64_t e0 = block * slots;
   const int32_t* src[3] = {x, y, z};
   int32_t* dst[3] = {px, py, pz};
   const uint32_t* onew = reinterpret_cast<const uint32_t*>(&one);
+  // read-only loads, several in flight at once: few warps share an SM here,
+  // so nothing else hides their latency
+#pragma unroll 4
+  for (int idx = t; idx < 3 * CW * slots; idx += THREADS) {
+    const int s = idx % slots, w = idx / slots;
+    const int64_t e = e0 + s;
+    if (e < n) {
+      const int64_t lo = word_row<NW>(w % CW, EXT) * n + e;
+      const int32_t* b = src[w / CW];
+      slot(s)[w] = (uint32_t)load_ro(b + lo) | ((uint32_t)load_ro(b + lo + EXT * n) << 16);
+    }
+  }
+  for (int s = t; s < slots; s += THREADS)
+    if (e0 + s < n) sflag[s] = load_ro(f + e0 + s);
+  sync();
+  // fold; the inclusive prefix of each element replaces it in its slot
   T ax = one, ay = one, az = F::zero();
   bool af = false;
-  for (int j0 = 0; j0 < r; j0 += K) {
-    // read-only loads, several in flight at once: few warps share an SM
-    // here, so nothing else hides their latency
-#pragma unroll 4
-    for (int idx = t; idx < 3 * CW * slots; idx += THREADS) {
-      const int s = idx % slots, w = idx / slots;
-      const int col = j0 + s % K;
-      const int64_t e = (c0 + s / K) * r + col;
-      if (col < r && e < n) {
-        const int64_t lo = word_row<NW>(w % CW, EXT) * n + e;
-        const int32_t* b = src[w / CW];
-        slot(s)[w] = (uint32_t)load_ro(b + lo) | ((uint32_t)load_ro(b + lo + EXT * n) << 16);
-      }
-    }
-    for (int s = t; s < slots; s += THREADS) {
-      const int col = j0 + s % K;
-      const int64_t e = (c0 + s / K) * r + col;
-      if (col < r && e < n) sflag[s] = load_ro(f + e);
-    }
-    sync();
-    // fold; the inclusive prefix of element e replaces it in its slot
-    for (int k = 0; k < K; ++k) {
-      const int s = t * K + k;
-      if (j0 + k >= r || (c0 + t) * r + j0 + k >= n) break;
-      T* v = reinterpret_cast<T*>(slot(s));
-      lifted_add<F>(E, ax, ay, az, af, v[0], v[1], v[2], sflag[s] != 0);
-      v[0] = ax;
-      v[1] = ay;
-      v[2] = az;
-      sflag[s] = af;
-    }
-    sync();
-    // the inclusive prefix of element e is the exclusive prefix of e + 1
-    // in the same chunk; the chunk's first element gets the identity
-    for (int idx = t; idx < 3 * CW * slots; idx += THREADS) {
-      const int s = idx % slots, w = idx / slots;
-      const int col = j0 + s % K;
-      const int64_t e = (c0 + s / K) * r + col;
-      const int64_t lo = word_row<NW>(w % CW, EXT) * n + e;
-      int32_t* b = dst[w / CW];
-      if (col + 1 < r && e + 1 < n) {
-        const uint32_t v = slot(s)[w];
-        b[lo + 1] = (int32_t)(v & 0xFFFFu);
-        b[lo + 1 + EXT * n] = (int32_t)(v >> 16);
-      }
-      if (col == 0 && e < n) {
-        const uint32_t v = w < 2 * CW ? onew[w % CW] : 0u;
-        b[lo] = (int32_t)(v & 0xFFFFu);
-        b[lo + EXT * n] = (int32_t)(v >> 16);
-      }
-    }
-    for (int s = t; s < slots; s += THREADS) {
-      const int col = j0 + s % K;
-      const int64_t e = (c0 + s / K) * r + col;
-      if (col + 1 < r && e + 1 < n) pf[e + 1] = sflag[s];
-      if (col == 0 && e < n) pf[e] = 0;
-    }
-    sync();
+  for (int k = 0; k < K; ++k) {
+    const int s = t * K + k;
+    if (e0 + s >= n) break;
+    T* v = reinterpret_cast<T*>(slot(s));
+    lifted_add<F>(E, ax, ay, az, af, v[0], v[1], v[2], sflag[s] != 0);
+    v[0] = ax;
+    v[1] = ay;
+    v[2] = az;
+    sflag[s] = af;
   }
-  const int64_t c = c0 + t;
+  sync();
+  // the inclusive prefix of element e is the exclusive prefix of e + 1 in
+  // the same chunk; the chunk's first element gets the identity
+  for (int idx = t; idx < 3 * CW * slots; idx += THREADS) {
+    const int s = idx % slots, w = idx / slots;
+    const int64_t e = e0 + s;
+    const int64_t lo = word_row<NW>(w % CW, EXT) * n + e;
+    int32_t* b = dst[w / CW];
+    if (s % K + 1 < K && e + 1 < n) {
+      const uint32_t v = slot(s)[w];
+      b[lo + 1] = (int32_t)(v & 0xFFFFu);
+      b[lo + 1 + EXT * n] = (int32_t)(v >> 16);
+    }
+    if (s % K == 0 && e < n) {
+      const uint32_t v = w < 2 * CW ? onew[w % CW] : 0u;
+      b[lo] = (int32_t)(v & 0xFFFFu);
+      b[lo + EXT * n] = (int32_t)(v >> 16);
+    }
+  }
+  for (int s = t; s < slots; s += THREADS) {
+    const int64_t e = e0 + s;
+    if (s % K + 1 < K && e + 1 < n) pf[e + 1] = sflag[s];
+    if (s % K == 0 && e < n) pf[e] = 0;
+  }
+  const int64_t c = block * THREADS + t;
   if (c < m) {
     store_coord(tx, m, c, ax);
     store_coord(ty, m, c, ay);
@@ -267,19 +260,19 @@ OZL_HD void scan_fold_block(const EcParams<F>& E, int t, int64_t block, Sync& sy
   }
 }
 
-// Phase 3 at element i: its exclusive prefix within its chunk (px, py, pz,
-// pf) becomes lifted_add(its chunk's offset (ox, oy, oz), prefix), in place;
+// Phase 3 at element i, in chunks of K: its exclusive prefix within its
+// chunk (px, py, pz, pf) becomes lifted_add(its chunk's offset (ox, oy, oz), prefix), in place;
 // `slot` is the thread's scratch in shared memory (stage_point)
-template <class F>
+template <class F, int K>
 OZL_HD void scan_offset_element(const EcParams<F>& E, int64_t i, uint32_t* slot,
                                 const int32_t* ox, const int32_t* oy, const int32_t* oz,
                                 int32_t* px, int32_t* py, int32_t* pz, const uint8_t* pf,
-                                int64_t n, int r) {
+                                int64_t n) {
   using T = typename F::T;
-  const int64_t m = (n + r - 1) / r, c = i / r;
+  const int64_t m = (n + K - 1) / K, c = i / K;
   T* tag = nullptr;
   T X = load_coord(ox, m, c, tag), Y = load_coord(oy, m, c, tag), Z = load_coord(oz, m, c, tag);
-  if (i % r) {  // the first element's prefix is the identity: offset + identity = offset
+  if (i % K) {  // the first element's prefix is the identity: offset + identity = offset
     const T* q = stage_point<T>(slot, px, py, pz, n, i);
     bool unused = false;
     lifted_add<F>(E, X, Y, Z, unused, q[0], q[1], q[2], pf[i] != 0);
@@ -423,10 +416,10 @@ inline EcParams<Base> params1(const uint32_t* p, uint32_t n0, int has_a, const u
   return E;
 }
 
-template <int NW, class Base = F1<NW>, bool LAZY = false>
-inline EcParams<F2<NW, Base, LAZY>> params2(const uint32_t* p, uint32_t n0, int beta, int has_a,
-                                            const uint32_t* a) {
-  EcParams<F2<NW, Base, LAZY>> E;
+template <int NW, class Base = F1<NW>>
+inline EcParams<F2<NW, Base>> params2(const uint32_t* p, uint32_t n0, int beta, int has_a,
+                                      const uint32_t* a) {
+  EcParams<F2<NW, Base>> E;
   E.field.b.f = make_params<NW>(p, n0);
   E.field.k = -beta;
   E.has_a = has_a != 0;

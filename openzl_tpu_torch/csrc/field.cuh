@@ -444,12 +444,10 @@ struct F1c : F1<NW> {
 
 // ---------------------------------------------------------------------------
 // quadratic extension c0 + c1 u, u^2 = beta = -k (k = 1 for BN254 and
-// BLS12-381, 5 for BLS12-377), over the base field Base (F1 or F1c). With
-// LAZY (Base = F1c), a product at k = 1 sums the two products of each
-// component unreduced and reduces the sum once
+// BLS12-381, 5 for BLS12-377), over the base field Base (F1 or F1c)
 // ---------------------------------------------------------------------------
 
-template <int NW, class Base = F1<NW>, bool LAZY = false>
+template <int NW, class Base = F1<NW>>
 struct F2 {
   using T = Fp2<NW>;
   using B = Fp<NW>;
@@ -466,22 +464,8 @@ struct F2 {
   OZL_HD T sub(const T& x, const T& y) const { return {b.sub(x.c0, y.c0), b.sub(x.c1, y.c1)}; }
   OZL_HD T dbl(const T& x) const { return {b.dbl(x.c0), b.dbl(x.c1)}; }
 
-  // Karatsuba: (x0 + x1 u)(y0 + y1 u) = (m0 - k m1) + (m2 - m0 - m1) u;
-  // lazily at k = 1: (x0 y0 + x1 (p - y1)) + (x0 y1 + x1 y0) u, each sum of
-  // two products below 2 p^2 and reduced once (F1c::mac_sum, redc)
+  // Karatsuba: (x0 + x1 u)(y0 + y1 u) = (m0 - k m1) + (m2 - m0 - m1) u
   OZL_HD T mul(const T& x, const T& y) const {
-    if constexpr (LAZY) {
-      if (k == 1) {
-        B ny1;
-        F1<NW>::sub_raw(ny1, b.p_as_fp(), y.c1);
-        const B a[2] = {x.c0, x.c1}, y_re[2] = {y.c0, ny1}, y_im[2] = {y.c1, y.c0};
-        uint32_t acc[2 * NW + 1];
-        Base::template mac_sum<2>(acc, a, y_re);
-        const B c0 = b.redc(acc);
-        Base::template mac_sum<2>(acc, a, y_im);
-        return {c0, b.redc(acc)};
-      }
-    }
     B m0 = b.mul(x.c0, y.c0);
     B m1 = b.mul(x.c1, y.c1);
     B m2 = b.mul(b.add(x.c0, x.c1), b.add(y.c0, y.c1));

@@ -51,8 +51,9 @@ K3S = build.KernelInfo(
     "openzl_tpu/ops/ec_kernel.py:288",
 )
 
-#: elements per chunk of the lifted scan: each wide level folds chunks of
-#: SCAN_R serially, so the scan takes about 2 l adds over log_SCAN_R l levels
+#: elements per chunk of the lifted scan (`kChunk` in ec_kernel.cu): each
+#: wide level folds chunks of SCAN_R serially, so the scan takes about 2 l
+#: adds over log_SCAN_R l levels
 SCAN_R = 4
 #: a level of at most SCAN_NARROW elements runs Hillis-Steele steps instead
 #: (one add of latency per doubling, where a level of chunks costs SCAN_R + 1)
@@ -368,16 +369,16 @@ def _lifted_add_plain(curve: CurveSpec, F, a, b, bf):
     return tuple(F.select(bf, u, v) for u, v in zip(b, s))
 
 
-def scan_fold_plain(curve: CurveSpec, values, flags, r: int):
-    """Phase 1 of `lifted_scan_plain`: chunks of r consecutive elements (a
+def scan_fold_plain(curve: CurveSpec, values, flags):
+    """Phase 1 of `lifted_scan_plain`: chunks of SCAN_R consecutive elements (a
     ragged last chunk padded with identities flagged False), each folded
     serially from the identity. Returns (each element's exclusive prefix
     within its chunk (X, Y, Z), their flags, the chunk totals (X, Y, Z),
     their flags)."""
     F = field_ops(curve, plain=True)
     n, dev = flags.shape[0], flags.device
-    m = -(-n // r)
-    cols = r if m > 1 else n
+    m = -(-n // SCAN_R)
+    cols = SCAN_R if m > 1 else n
     pad = m * cols - n
     one = F.one((pad,), dev)
     grid = [torch.cat([v, p], dim=-1).reshape(v.shape[:-1] + (m, cols))
@@ -395,10 +396,11 @@ def scan_fold_plain(curve: CurveSpec, values, flags, r: int):
     return pre, torch.stack(pre_f, dim=-1).reshape(m * cols)[:n], acc, accf
 
 
-def scan_offsets_plain(curve: CurveSpec, offsets, pre, pre_f, r: int):
+def scan_offsets_plain(curve: CurveSpec, offsets, pre, pre_f):
     """Phase 3 of `lifted_scan_plain`: element i's prefix within its chunk
-    under its chunk's offset, the lifted sum of offsets[i // r] and pre[i]."""
-    chunk = torch.arange(pre_f.shape[0], device=pre_f.device) // r
+    under its chunk's offset, the lifted sum of offsets[i // SCAN_R] and
+    pre[i]."""
+    chunk = torch.arange(pre_f.shape[0], device=pre_f.device) // SCAN_R
     return _lifted_add_plain(curve, field_ops(curve, plain=True), tuple(v[..., chunk] for v in offsets), pre, pre_f)
 
 
@@ -421,34 +423,34 @@ def scan_step_plain(curve: CurveSpec, values, flags, d: int):
             torch.cat([flags.new_zeros(1), flags[: n - 1]]))
 
 
-def lifted_scan_plain(curve: CurveSpec, totals, tflag, r: int = SCAN_R, narrow: int = SCAN_NARROW):
+def lifted_scan_plain(curve: CurveSpec, totals, tflag):
     """Plain torch version of `lifted_scan`, in the kernel's association
-    order: a level of 2 to `narrow` elements by Hillis-Steele steps
+    order: a level of 2 to SCAN_NARROW elements by Hillis-Steele steps
     (`scan_step_plain`); a wider one by phase 1 (`scan_fold_plain`), the
     chunk totals' exclusive prefixes by the same scan (none past a single
     chunk), and phase 3 (`scan_offsets_plain`)."""
     n = tflag.shape[0]
     if n == 0:
         return tuple(totals)
-    if 2 <= n <= narrow:
+    if 2 <= n <= SCAN_NARROW:
         values, flags, d = tuple(totals), tflag, 1
         while d < n:
             values, flags = scan_step_plain(curve, values, flags, d)
             d *= 2
         return values
-    pre, pre_f, tot, tot_f = scan_fold_plain(curve, totals, tflag, r)
+    pre, pre_f, tot, tot_f = scan_fold_plain(curve, totals, tflag)
     if tot_f.shape[0] == 1:
         return pre
-    return scan_offsets_plain(curve, lifted_scan_plain(curve, tot, tot_f, r, narrow), pre, pre_f, r)
+    return scan_offsets_plain(curve, lifted_scan_plain(curve, tot, tot_f), pre, pre_f)
 
 
-def _scan_level(curve: CurveSpec, xs, flags, r: int, narrow: int, args):
+def _scan_level(curve: CurveSpec, xs, flags, args):
     """Exclusive lifted prefixes of one level (flat coordinates (.., n) and
     flags (n,)): Hillis-Steele steps, or phase 1, the totals' prefixes by
     recursion and phase 3."""
     n = flags.shape[0]
     lib = build.lib()
-    if 2 <= n <= narrow:
+    if 2 <= n <= SCAN_NARROW:
         d = 1
         while d < n:
             out = [torch.empty_like(v) for v in xs]
@@ -458,40 +460,37 @@ def _scan_level(curve: CurveSpec, xs, flags, r: int, narrow: int, args):
             K3S.count(n)
             xs, flags, d = out, out_f, 2 * d
         return xs
-    m = -(-n // r)
+    m = -(-n // SCAN_R)
     pre = [torch.empty_like(v) for v in xs]
     pre_f = torch.empty_like(flags)
     tot = [torch.empty(v.shape[:-1] + (m,), dtype=v.dtype, device=v.device) for v in xs]
     tot_f = torch.empty(m, dtype=flags.dtype, device=flags.device)
     ptrs = [t.data_ptr() for t in (*xs, flags, *pre, pre_f, *tot, tot_f)]
-    build.check(lib.ozl_ec_lifted_scan(1, curve.ext, *ptrs, n, r, *args), "K3 lifted scan (phase 1)")
+    build.check(lib.ozl_ec_lifted_scan(1, curve.ext, *ptrs, n, 0, *args), "K3 lifted scan (phase 1)")
     K3S.count(n)
     if m > 1:
-        off = _scan_level(curve, tot, tot_f, r, narrow, args)
+        off = _scan_level(curve, tot, tot_f, args)
         ptrs = [t.data_ptr() for t in off] + [0] + [t.data_ptr() for t in (*pre, pre_f)] + [0] * 4
-        build.check(lib.ozl_ec_lifted_scan(3, curve.ext, *ptrs, n, r, *args), "K3 lifted scan (phase 3)")
+        build.check(lib.ozl_ec_lifted_scan(3, curve.ext, *ptrs, n, 0, *args), "K3 lifted scan (phase 3)")
         K3S.count(n)
     return pre
 
 
-def lifted_scan(curve: CurveSpec, totals, tflag, r: int = SCAN_R, narrow: int = SCAN_NARROW):
+def lifted_scan(curve: CurveSpec, totals, tflag):
     """Exclusive prefixes of the chunk totals (X, Y, Z) (batch (l,)) under
     the lifted monoid (value, flag): b's value alone once b's flag is set,
     else a + b. Element i gets the lifted sum of elements 0 .. i - 1 (the
     identity at i = 0). On the card: K3's scan variant, a fold launch and an
-    offset launch per level of ceil(l / r^k) elements above `narrow`, and
-    ceil(log2 n) Hillis-Steele launches for the first level of 2 to
-    `narrow` elements; r is 2 to 4 or a multiple of 4. Returns (X, Y, Z)
-    with batch (l,)."""
+    offset launch per level of ceil(l / SCAN_R^k) elements above
+    SCAN_NARROW, and ceil(log2 n) Hillis-Steele launches for the first
+    level of 2 to SCAN_NARROW elements. Returns (X, Y, Z) with batch (l,)."""
     if tflag.ndim != 1 or tflag.dtype != torch.bool or tuple(totals[0].shape[-1:]) != tuple(tflag.shape):
         raise ValueError(f"lifted_scan: totals {tuple(totals[0].shape)}, flags {tuple(tflag.shape)}")
-    if r < 2 or (r > 4 and r % 4):
-        raise ValueError(f"lifted_scan: chunks of r = {r}; r must be 2 to 4 or a multiple of 4")
     if device_kind(*totals, tflag) == "cpu":
-        return lifted_scan_plain(curve, totals, tflag, r, narrow)
+        return lifted_scan_plain(curve, totals, tflag)
     flat, shape = _flat(curve, tuple(totals))
     words, n0, beta, has_a, a_words = _launch_args(curve)
     args = (curve.base.n_limbs, words.ctypes.data, n0, beta, has_a, a_words.ctypes.data,
             _const_words(curve, 1).ctypes.data, build.stream_ptr(tflag))
-    out = _scan_level(curve, flat, tflag.contiguous(), r, narrow, args)
+    out = _scan_level(curve, flat, tflag.contiguous(), args)
     return tuple(o.reshape(shape) for o in out)

@@ -19,13 +19,13 @@ it runs on:
     the shipped one (chunk totals; buckets too where the tail stores are
     kept);
   * K3 (add, madd) and K4 over G1 and G2 at 2^16 points, from builds of
-    `csrc/ec_kernel.cu` with other block sizes and launch bounds, each held
-    against the shipped build;
+    `csrc/ec_kernel.cu` with other launch bounds or the base field F1
+    (its -D options), each held against the shipped build;
   * K3's lifted scan on the chunk totals of the two K9 folds above, at
-    chunk lengths r = 4 to 16 and bounds of its Hillis-Steele levels, with
-    the device time of each kernel (torch.profiler), against the
-    Hillis-Steele scan through K3 that it replaced (the same group
-    elements; compared affine).
+    bounds of its Hillis-Steele levels (`ec_kernel.SCAN_NARROW`), with the
+    device time of each kernel (torch.profiler), against the Hillis-Steele
+    scan through K3 that it replaced (the same group elements; compared
+    affine).
 Builds go to `build/kernel_probe/` beside the kernel library. Exits non-zero
 without a card.
 """
@@ -57,16 +57,11 @@ OUT = build.BUILD_DIR.parent / "kernel_probe"
 #: (threads a block, least blocks per SM over Fq, over Fq2); the first is
 #: what fold_kernel.cu ships
 FOLD_BOUNDS = [(128, 4, 2), (128, 3, 3), (64, 8, 4), (64, 6, 4), (32, 16, 8), (32, 12, 8)]
-#: the same for K3 and K4 (ec_kernel.cu), whether Fq2 products reduce
-#: each component once (`kLazyFq2`), and the base field (F1c, or PR 1's F1);
-#: the first is what it ships
-EC_BUILDS = [(128, 2, 1, True, "F1c"), (128, 3, 2, True, "F1c"), (128, 4, 2, True, "F1c"),
-             (128, 2, 1, False, "F1c"), (128, 2, 1, False, "F1")]
-#: the base field's names in ec_kernel.cu
-EC_FIELD = ("using G1F = F1c<8>;", "using G2F = F2<8, F1c<8>, kLazyFq2>;", "params1<8, F1c<8>>",
-            "params2<8, F1c<8>, kLazyFq2>")
-#: (chunk length, narrow-level bound) of the lifted scan swept
-SCAN_SHAPES = [(2, 16384), (4, 0), (4, 4096), (4, 16384), (4, 32768), (8, 16384)]
+#: K3 and K4 builds of ec_kernel.cu: (least blocks per SM over Fq, over
+#: Fq2, base field), passed as -D options; (2, 1, "F1c") is what it ships
+EC_BUILDS = [(2, 1, "F1c"), (3, 2, "F1c"), (4, 2, "F1c"), (2, 1, "F1")]
+#: bounds of the lifted scan's narrow levels swept (`ec_kernel.SCAN_NARROW`)
+SCAN_NARROWS = [0, 4096, 16384, 32768]
 PARTS = ("microbench", "k5", "k9", "k3", "scan")
 DIRECT_SRC = """template <class T>
 struct DirectRead {
@@ -134,30 +129,6 @@ def _fold_sources() -> dict:
     return builds
 
 
-def _ec_sources() -> dict:
-    """name -> ec_kernel.cu text of each K3 / K4 build to time."""
-    src = (build.CSRC / "ec_kernel.cu").read_text()
-
-    def knobs(t, g1, g2, lazy):
-        return (f"constexpr int kThreads = {t};\nconstexpr int kMinBlocksG1 = {g1};\n"
-                f"constexpr int kMinBlocksG2 = {g2};", f"constexpr bool kLazyFq2 = {str(lazy).lower()};")
-
-    shipped = knobs(*EC_BUILDS[0][:4])
-    if not all(k in src for k in shipped + EC_FIELD) or EC_BUILDS[0][4] != "F1c":
-        raise RuntimeError("ec_kernel.cu no longer ships the first of EC_BUILDS")
-    builds = {}
-    for t, g1, g2, lazy, field in EC_BUILDS:
-        text = src
-        for old, new in zip(shipped, knobs(t, g1, g2, lazy)):
-            text = text.replace(old, new)
-        if field == "F1":
-            for old, new in zip(EC_FIELD, ("using G1F = F1<8>;", "using G2F = F2<8, F1<8>>;", "params1<8, F1<8>>",
-                                           "params2<8, F1<8>>")):
-                text = text.replace(old, new)
-        builds[f"{field}, {t} threads, {g1} / {g2} blocks per SM{', lazy Fq2 products' if lazy else ''}"] = text
-    return builds
-
-
 def _start_builds(parts):
     """Start nvcc for the microbenchmark, every K9 build and every K3 / K4
     build that `parts` needs; returns the processes by name (K3 / K4 builds
@@ -183,13 +154,12 @@ def _start_builds(parts):
             start(name, so, [nvcc, *build.NVCC_FLAGS, "-I", str(d), "-I", str(build.CSRC), "-shared", "-o",
                              str(so), str(d / "fold_kernel.cu")])
     if "k3" in parts:
-        for i, (name, src) in enumerate(_ec_sources().items()):
-            d = OUT / f"ec_{i}"
-            d.mkdir(exist_ok=True)
-            (d / "ec_kernel.cu").write_text(src)
-            so = d / "ec.so"
-            start(f"ec: {name}", so, [nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-shared", "-o", str(so),
-                                      str(d / "ec_kernel.cu")])
+        for i, (g1, g2, field) in enumerate(EC_BUILDS):
+            so = OUT / f"ec_{i}.so"
+            flags = [f"-DOZL_EC_MIN_BLOCKS_G1={g1}", f"-DOZL_EC_MIN_BLOCKS_G2={g2}", f"-DOZL_EC_BASE={field}"]
+            start(f"ec: {field}, {g1} / {g2} blocks per SM", so,
+                  [nvcc, *build.NVCC_FLAGS, *flags, "-I", str(build.CSRC), "-shared", "-o", str(so),
+                   str(build.CSRC / "ec_kernel.cu")])
     return procs
 
 
@@ -384,7 +354,9 @@ def hillis_steele_scan(curve, totals, tflag):
 
 def scan_sweep(cases) -> None:
     """K3's lifted scan over the chunk totals of each fold case, at each
-    chunk length, against the Hillis-Steele scan it replaced."""
+    bound of its narrow levels, against the Hillis-Steele scan it
+    replaced."""
+    shipped = ec_kernel.SCAN_NARROW
     for name, curve, args in cases:
         totals, tflag = ec_kernel.fold_madd(*args)[:2]
         l = tflag.shape[0]
@@ -393,18 +365,23 @@ def scan_sweep(cases) -> None:
         t_old = _timed(lambda: hillis_steele_scan(curve, totals, tflag), 3)
         log(f"[scan] {name}: l = {l} chunk totals, {int(tflag.sum())} flagged; Hillis-Steele through K3 "
             f"{t_old:.4f} ms")
-        for r, narrow in SCAN_SHAPES:
-            got = jac.normalize(curve, JPoint(*ec_kernel.lifted_scan(curve, totals, tflag, r, narrow)))
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            before = ec_kernel.K3S.launches
-            t = [_timed(lambda: ec_kernel.lifted_scan(curve, totals, tflag, r, narrow), 10) for _ in range(2)]
-            launches = (ec_kernel.K3S.launches - before) // 22
-            report = profile.profile(lambda: ec_kernel.lifted_scan(curve, totals, tflag, r, narrow))
-            log(f"[scan]   r={r}, narrow={narrow}: {t[0]:.4f} / {t[1]:.4f} ms, device busy {report.busy_ms:.4f} ms "
-                f"({launches} launches){'' if same else ' DIFFERS'}; device ms by kernel: "
-                + ", ".join(f"{k.split('<')[0].split('::')[-1]} {ms:.4f} ({n})" for ms, n, k in report.kernels))
-            if not same:
-                raise RuntimeError(f"the lifted scan at r={r}, narrow={narrow} gives other group elements")
+        scan = lambda: ec_kernel.lifted_scan(curve, totals, tflag)
+        try:
+            for narrow in SCAN_NARROWS:
+                ec_kernel.SCAN_NARROW = narrow
+                got = jac.normalize(curve, JPoint(*scan()))
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                before = ec_kernel.K3S.launches
+                t = [_timed(scan, 10) for _ in range(2)]
+                launches = (ec_kernel.K3S.launches - before) // 22
+                report = profile.profile(scan)
+                log(f"[scan]   narrow={narrow}: {t[0]:.4f} / {t[1]:.4f} ms, device busy {report.busy_ms:.4f} ms "
+                    f"({launches} launches){'' if same else ' DIFFERS'}; device ms by kernel: "
+                    + ", ".join(f"{k.split('<')[0].split('::')[-1]} {ms:.4f} ({n})" for ms, n, k in report.kernels))
+                if not same:
+                    raise RuntimeError(f"the lifted scan at narrow={narrow} gives other group elements")
+        finally:
+            ec_kernel.SCAN_NARROW = shipped
 
 
 def main() -> None:

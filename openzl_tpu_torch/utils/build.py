@@ -142,9 +142,9 @@ _SIGNATURES = {
     "ozl_ec_add": [_I, _I] + [_VP] * 9 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],
     # (ext, x1, y1, z1, x3, y3, z3, N, n_limbs, p, n0, beta, has_a, a, stream)
     "ozl_ec_dbl": [_I] + [_VP] * 6 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],
-    # (phase, ext, a x, y, z, flag, b x, y, z, flag, c x, y, z, flag, n, r,
+    # (phase, ext, a x, y, z, flag, b x, y, z, flag, c x, y, z, flag, n, d,
     #  n_limbs, p, n0, beta, has_a, a, one, stream)
-    "ozl_ec_lifted_scan": [_I, _I] + [_VP] * 12 + [_I64, _I, _I, _VP, _U32, _I, _I, _VP, _VP, _VP],
+    "ozl_ec_lifted_scan": [_I, _I] + [_VP] * 12 + [_I64, _I64, _I, _VP, _U32, _I, _I, _VP, _VP, _VP],
     # (ext, keys, pidx, l, r, pts, tx, ty, tz, tflag, bx, by, bz, bflag,
     #  bchunk, width, n_limbs, p, n0, beta, has_a, a, one, stream)
     "ozl_fold_madd": [_I, _VP, _VP, _I64, _I, _VP] + [_VP] * 9

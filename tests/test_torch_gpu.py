@@ -90,26 +90,27 @@ def test_k3_k4_kernels_match_plain(cuda, curve):
 
 
 @pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
-def test_k3_lifted_scan_matches_plain(cuda, curve):
-    """K3's lifted scan at the edge sizes of its chunks (l = 1, 3, r - 1, r,
-    r + 1, 5 r + 3 at the default r) with no, all and random flags, through
-    chunks and through Hillis-Steele steps, over four levels (l = 600), at
-    other chunk lengths, and with a narrow last level."""
+def test_k3_lifted_scan_matches_plain(cuda, curve, monkeypatch):
+    """K3's lifted scan at the edge sizes of its chunks (l = 1, 3, R - 1, R,
+    R + 1, 5 R + 3) with no, all and random flags, through chunks
+    (`SCAN_NARROW` set to 0) and through Hillis-Steele steps, over four
+    levels of chunks (l = 600), and with a narrow last level."""
     pts, qts = _points(curve, 12, 41)
     base = jac.concat([jac.double(curve, jac.from_affine_ints(curve, pts, cuda)),
                        jac.from_affine_ints(curve, qts, cuda)])
     rng = random.Random(42)
     R, N = ec_kernel.SCAN_R, ec_kernel.SCAN_NARROW
-    runs = [(l, mode, R, narrow) for l in sorted({1, 3, R - 1, R, R + 1, 5 * R + 3}) for mode in ("none", "all", "rand")
+    runs = [(l, mode, narrow) for l in sorted({1, 3, R - 1, R, R + 1, 5 * R + 3}) for mode in ("none", "all", "rand")
             for narrow in (0, N)]
-    runs += [(600, "rand", r, 0) for r in (R, 2, 3, 16)] + [(600, "rand", R, 40), (600, "rand", R, N)]
-    for l, mode, r, narrow in runs:
+    runs += [(600, "rand", 0), (600, "rand", 40), (600, "rand", N)]
+    for l, mode, narrow in runs:
         P = jac.take(base, torch.tensor([rng.randrange(24) for _ in range(l)], device=cuda))
         flags = torch.tensor([mode == "all" or (mode == "rand" and rng.random() < 0.3) for _ in range(l)],
                              device=cuda)
-        got = ec_kernel.lifted_scan(curve, tuple(P), flags, r, narrow)
-        want = ec_kernel.lifted_scan_plain(curve, tuple(P), flags, r, narrow)
-        assert all(torch.equal(g, w) for g, w in zip(got, want)), (l, mode, r, narrow)
+        monkeypatch.setattr(ec_kernel, "SCAN_NARROW", narrow)
+        got = ec_kernel.lifted_scan(curve, tuple(P), flags)
+        want = ec_kernel.lifted_scan_plain(curve, tuple(P), flags)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (l, mode, narrow)
 
 
 @pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)

@@ -11,11 +11,11 @@ scan, the Python oracle and the scan it replaced.
     Jacobian limbs differ;
   * against per-segment sums of `openzl_tpu.ref.curve` over BN254 G1 and
     G2 at the chunk edge sizes l = 1, 3, R - 1, R, R + 1, 5 R + 3, with no,
-    all and random flags, through chunks (narrow = 0) and through
-    Hillis-Steele steps (the default narrow): the same group elements
-    (tolerance 0, checked as X = x Z^2 and Y = y Z^3);
+    all and random flags, through chunks (`SCAN_NARROW` set to 0) and
+    through Hillis-Steele steps (the default `SCAN_NARROW`): the same group
+    elements (tolerance 0, checked as X = x Z^2 and Y = y Z^3);
   * `msm._bucket_totals` against its former Hillis-Steele scan through K3
-    (`ops/scan_utils.py`): the same buckets;
+    (`tools/kernel_probe.py` `hillis_steele_scan`): the same buckets;
   * the wrapper's launch path, level by level, through a stand-in library
     whose entry point runs the plain phases on the buffers it is handed:
     bit-equal to the plain version, with one counted launch per phase.
@@ -39,7 +39,7 @@ from openzl_tpu.ops import scan_utils as ref_scan
 from openzl_tpu.ref import curve as ref
 from openzl_tpu_torch.curves import jacobian as jac
 from openzl_tpu_torch.ops import ec_kernel, msm
-from openzl_tpu_torch.ops.scan_utils import inclusive_scan
+from openzl_tpu_torch.tools.kernel_probe import hillis_steele_scan
 from openzl_tpu_torch.utils import build
 
 # xdist workers share the machine's cores: one torch thread each, since
@@ -101,14 +101,15 @@ def _assert_points(curve, got, want):
     assert bool(F.eq(Y[..., idx], F.mul(ys, F.mul(z2, z))).all())
 
 
-def test_lifted_scan_plain_matches_reference_scan():
+def test_lifted_scan_plain_matches_reference_scan(monkeypatch):
     """l = 1024 on the toy curve: the reference picks chunks of 4 (256
     lanes) and Hillis-Steele over the 256 chunk totals; shifted by one, its
     inclusive scan is the port's exclusive one, as affine points."""
     curve = toy_curve()
     pts, P, flags = _inputs(curve, 1024, "random", 11)
-    chunks = ec_kernel.lifted_scan_plain(curve, tuple(P), flags, narrow=0)
     steps = ec_kernel.lifted_scan_plain(curve, tuple(P), flags)
+    monkeypatch.setattr(ec_kernel, "SCAN_NARROW", 0)
+    chunks = ec_kernel.lifted_scan_plain(curve, tuple(P), flags)
     F = ref_jac.field_ops(curve)
 
     def lifted(a, b):  # openzl_tpu/ops/msm.py:352-360
@@ -130,9 +131,10 @@ def test_lifted_scan_plain_matches_reference_scan():
 @pytest.mark.parametrize("mode", ["none", "all", "random"])
 @pytest.mark.parametrize("l", sorted({1, 3, R - 1, R, R + 1, 5 * R + 3}))
 @pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
-def test_lifted_scan_plain_matches_oracle_sums(curve, l, mode, narrow):
+def test_lifted_scan_plain_matches_oracle_sums(curve, l, mode, narrow, monkeypatch):
     pts, P, flags = _inputs(curve, l, mode, l)
-    got = ec_kernel.lifted_scan_plain(curve, tuple(P), flags, narrow=narrow)
+    monkeypatch.setattr(ec_kernel, "SCAN_NARROW", narrow)
+    got = ec_kernel.lifted_scan_plain(curve, tuple(P), flags)
     _assert_points(curve, got, _exclusive_sums(curve, pts, flags))
 
 
@@ -141,19 +143,10 @@ def _bucket_totals_hillis_steele(curve, pts, keys, pidx, r, n_buckets):
     totals' exclusive offsets from a Hillis-Steele scan through K3."""
     dev = keys.device
     totals, tflag, bv, bflag, bchunk = ec_kernel.fold_madd(curve, pts, keys, pidx, r, n_buckets + 1)
-    l = tflag.shape[0]
-
-    def lifted(a, b):
-        merged = jac.add(curve, jac.JPoint(*a[:3]), jac.JPoint(*b[:3]))
-        return (*jac.select(b[3], jac.JPoint(*b[:3]), merged), a[3] | b[3])
-
-    def pad(k):
-        return (*jac.identity(curve, (k,), dev), torch.zeros(k, dtype=torch.bool, device=dev))
-
-    incl = inclusive_scan(lifted, (*totals, tflag), pad)
-    excl = tuple(torch.cat([p, v[..., : l - 1]], dim=-1) for p, v in zip(pad(1), incl))
-    total = lifted(tuple(v[..., bchunk] for v in excl), (*bv, bflag))
-    return jac.JPoint(*(v[..., :n_buckets] for v in total[:3]))
+    excl = hillis_steele_scan(curve, totals, tflag)
+    merged = jac.add(curve, jac.JPoint(*(v[..., bchunk] for v in excl)), jac.JPoint(*bv))
+    total = jac.select(bflag, jac.JPoint(*bv), merged)
+    return jac.JPoint(*(v[..., :n_buckets] for v in total))
 
 
 @pytest.mark.parametrize("r", [1, 4, 16])
@@ -189,10 +182,10 @@ class _PlainScanLib:
     def __init__(self, curve):
         self.curve, self.calls = curve, []
 
-    def ozl_ec_lifted_scan(self, phase, ext, ax, ay, az, af, bx, by, bz, bf, cx, cy, cz, cf, n, r, *rest):
+    def ozl_ec_lifted_scan(self, phase, ext, ax, ay, az, af, bx, by, bz, bf, cx, cy, cz, cf, n, d, *rest):
         self.calls.append((phase, n))
         head = (self.curve.base.n_limbs,) + ((2,) if ext == 2 else ())
-        m = -(-n // r)
+        m = -(-n // R)
 
         def coords(ptrs, k):
             return [_view(p, head + (k,)) for p in ptrs]
@@ -205,33 +198,33 @@ class _PlainScanLib:
 
         if phase == 2:
             out = ec_kernel.scan_step_plain(self.curve, t(coords((ax, ay, az), n)),
-                                            torch.from_numpy(flags(af, n).astype(bool)), r)
+                                            torch.from_numpy(flags(af, n).astype(bool)), d)
             for dst, src in zip(coords((bx, by, bz), n), out[0]):
                 dst[...] = src.numpy()
             flags(bf, n)[...] = out[1].numpy()
         elif phase == 1:
             out = ec_kernel.scan_fold_plain(self.curve, t(coords((ax, ay, az), n)),
-                                            torch.from_numpy(flags(af, n).astype(bool)), r)
+                                            torch.from_numpy(flags(af, n).astype(bool)))
             for dst, src in zip(coords((bx, by, bz), n) + coords((cx, cy, cz), m), out[0] + out[2]):
                 dst[...] = src.numpy()
             flags(bf, n)[...] = out[1].numpy()
             flags(cf, m)[...] = out[3].numpy()
         else:
             out = ec_kernel.scan_offsets_plain(self.curve, t(coords((ax, ay, az), m)), t(coords((bx, by, bz), n)),
-                                               torch.from_numpy(flags(bf, n).astype(bool)), r)
+                                               torch.from_numpy(flags(bf, n).astype(bool)))
             for dst, src in zip(coords((bx, by, bz), n), out):
                 dst[...] = src.numpy()
         return 0
 
 
-def _launches(n, r, narrow):
+def _launches(n, narrow):
     """The (phase, n) launches of a lifted scan of n elements: ceil(log2 n)
     Hillis-Steele steps for a narrow level of 2 or more, else a fold, the
     chunk totals' scan and an offset launch (none past a single chunk)."""
     if 2 <= n <= narrow:
         return [(2, n)] * (n - 1).bit_length()
-    m = -(-n // r)
-    return [(1, n)] + (_launches(m, r, narrow) + [(3, n)] if m > 1 else [])
+    m = -(-n // R)
+    return [(1, n)] + (_launches(m, narrow) + [(3, n)] if m > 1 else [])
 
 
 @pytest.mark.parametrize("narrow", [0, 2 * R], ids=["chunks", "steps"])
@@ -242,19 +235,18 @@ def test_lifted_scan_launch_path_matches_plain(curve, narrow, monkeypatch):
     width; the plain version's limbs."""
     l = 5 * R * R + 3
     _, P, flags = _inputs(curve, l, "random", 5)
-    want = ec_kernel.lifted_scan_plain(curve, tuple(P), flags, narrow=narrow)
+    monkeypatch.setattr(ec_kernel, "SCAN_NARROW", narrow)
+    want = ec_kernel.lifted_scan_plain(curve, tuple(P), flags)
     fake = _PlainScanLib(curve)
     monkeypatch.setattr(ec_kernel, "device_kind", lambda *t: "cuda")
     monkeypatch.setattr(build, "lib", lambda: fake)
     monkeypatch.setattr(build, "stream_ptr", lambda t: None)
     monkeypatch.setattr(ec_kernel.K3S, "launches", 0)
     monkeypatch.setattr(ec_kernel.K3S, "by_width", {})
-    got = ec_kernel.lifted_scan(curve, tuple(P), flags, narrow=narrow)
-    calls = _launches(l, R, narrow)
+    got = ec_kernel.lifted_scan(curve, tuple(P), flags)
+    calls = _launches(l, narrow)
     assert {p for p, _ in calls} == ({1, 3} if narrow == 0 else {1, 2, 3})
     assert fake.calls == calls
     assert ec_kernel.K3S.launches == len(calls)
     assert ec_kernel.K3S.by_width == dict(collections.Counter(1 << (w - 1).bit_length() for _, w in calls))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    with pytest.raises(ValueError, match="r = 6"):
-        ec_kernel.lifted_scan(curve, tuple(P), flags, 6)
