@@ -7,11 +7,14 @@ with dense polynomials, and checks every hand-written kernel on the way.
 Phases:
 
   1. device   the card's name and power limit; fails without CUDA
-  2. build    nvcc builds the kernels (K1-K9, K3s) and `make -C native` the
-              host library; prints the build seconds and each kernel's
-              registers and spill stores (`-Xptxas -v`)
+  2. build    nvcc builds the kernels (K1-K9, K3s; K3, K4, K9 and K3s at
+              16 and 24 limbs) and `make -C native` the host library;
+              prints the build seconds (and each .cu file's nvcc process)
+              and each kernel's registers and spill stores (`-Xptxas -v`)
   3. kernels  each kernel against its plain torch version on the card,
               bit-exact, at the main path's shapes; prints both times
+  3b. kernels K3 (add, madd) and K4 at 24 limbs, over BLS12-381 G1 and G2
+              at 2^16 points with every mask case, the same way
   4. roundtrip  port on CUDA against port on CPU, same seeds, 2 chain
               links: ProvingKey and Proof bytes must be identical
   5. slice    BN254 Poseidon hash chain (512 links, about 2^17
@@ -29,6 +32,11 @@ Phases:
               inputs (kernel and plain ms, bit-exact) and at the chunk
               edge sizes l = 1, 3, r - 1, r, r + 1, 5 r + 3 over G1 and G2
               with no, all and random flags
+  5c. slice   the same slice (512 links, 3 requests, a profiled one, a
+              fuzzed input) through `Groth16()` with no arguments:
+              BLS12-381 on the card, its circuit's Poseidon parameters
+              over BLS12-381 Fr, domain 2^17; K3, K4, K9 and K3s must
+              launch at 24 limbs; then 5b over this request's two scans
   6. hash     K5, K6 and K7 against their plain versions at batch 2^16
               (BN254 Fr, width 3, bit-exact), both K5 variants (wide and
               split) at B = 1, 2, 3, 127, 128, 129, 2047, 2048, 16895,
@@ -61,9 +69,17 @@ Phases:
               step and peak device memory; K8 and K9 must launch. Then one
               more commit under torch.profiler, and one commit + open at
               degree 2^20 - 1, timed
+  7b. kzg     phase 7 over BLS12-381 at degree 2^12 - 1, the EIP-4844
+              blob of 4096 field elements (no 2^20 run): K9 at 24 limbs on
+              the G1 commit fold, phase 5c's B2 fold and at r = 1, then
+              `KZG(BLS12_381, backend="device")` setup, commit, opens,
+              verify, batch_verify, params bytes, a product and a division;
+              K9 must launch at 24 limbs
 
 Prints a JSON line of per-kernel results (times, launches on their path,
-and the bound: the least time the card could take for the same work), then,
+and the bound: the least time the card could take for the same work; the
+rows of K3, K4, K9 and K3s also carry their BLS12-381 launches and runs,
+with each kernel's registers and spills), then,
 as the last line, {"ok": true, "device": {...}}. Any failure exits non-zero
 with no result. Imports only the port (`openzl_tpu_torch`), never JAX.
 
@@ -117,7 +133,30 @@ def phase_device():
 # ---------------------------------------------------------------------------
 
 
+#: the kernel templates of csrc/ whose registers and spills the kernels line
+#: reports, by their names in the -Xptxas -v report
+PTXAS_KERNELS = ("ec_add_kernel", "ec_dbl_kernel", "scan_fold_kernel", "scan_step_kernel", "scan_offset_kernel",
+                 "fold_kernel")
+
+
+def _ptxas_key(entry_name: str):
+    """(kernel, words, ext) of a mangled entry name of the EC or fold
+    kernels (the add kernel's MIXED instantiation named "ec_madd_kernel"),
+    or None for the other kernels."""
+    import re
+
+    base = next((k for k in PTXAS_KERNELS if re.search(rf"\d{k}I", entry_name)), None)
+    words = re.search(r"F1cILi(\d+)E", entry_name)
+    if base is None or words is None:
+        return None
+    if base == "ec_add_kernel":
+        base = "ec_madd_kernel" if re.search(r"ELb1E", entry_name) else base
+    return base, int(words.group(1)), 2 if "2F2I" in entry_name else 1
+
+
 def phase_build():
+    """Builds the kernels; returns {(kernel, words, ext): (registers, spill
+    store bytes)} of the EC and fold kernels (`_ptxas_key`)."""
     import re
 
     from openzl_tpu_torch.utils import build
@@ -139,12 +178,20 @@ def phase_build():
     entries = re.split(r"Compiling entry function '", ptxas)[1:]
     log(f"[build] nvcc {t_nvcc:.1f} s, make -C native {t_native:.1f} s; {len(entries)} kernels; "
         f"ptxas report {path.with_suffix('.log').relative_to(ROOT)}")
+    for line in ptxas.splitlines():
+        if line.startswith("nvcc "):  # one nvcc process per .cu file, all started together
+            log(f"[build]   {line}")
+    table = {}
     for entry in entries:
         name = entry.split("'", 1)[0]
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores", entry)
         log(f"[build]   {name}: {regs.group(1) if regs else '?'} registers, "
             f"{spill.group(1) if spill else '?'} bytes spill stores")
+        key = _ptxas_key(name)
+        if key is not None and regs and spill:
+            table[key] = (int(regs.group(1)), int(spill.group(1)))
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +244,10 @@ def _mont_words(n_limbs: int, products: int, squares: int = 0) -> float:
     return products * (nw * nw + reduce) + squares * (nw * (nw + 1) / 2 + reduce)
 
 
+#: the kernels over curve points, instantiated for 16-limb (BN254) and
+#: 24-limb (BLS12-381) base fields
+EC_KERNELS = ("ec_add", "ec_dbl", "fold_madd", "ec_lifted_scan")
+
 #: (base-field Montgomery products, squares) of one point operation
 #: (csrc/ec.cuh, a = 0): G1 add 11 + 5, madd 7 + 4, dbl 2 + 5; over Fq2 a
 #: product is 3 base products and a square 2 (no base square)
@@ -222,17 +273,25 @@ def _device_ms(fn, reps: int):
     return sum(ms for ms, _, _ in report.kernels) / reps
 
 
-def _check(name, results, got, exp, ms, plain_ms, shape, work, kern=None):
+def _check(name, results, got, exp, ms, plain_ms, shape, work, kern=None, ptx=None):
     """Record one kernel comparison; `work` = (word products, bytes) the
     call needs, each input read once and each output written once. With
-    `kern`, also print the device time of one call of it."""
+    `kern`, also print the device time of one call of it; `ptx` is the
+    kernel's key in phase 2's ptxas table."""
     err = _max_err(got, exp)
     dms = _device_ms(kern, 10) if kern is not None else None
     device = "" if kern is None else f" (device {dms:.4f} ms)" if dms is not None else " (device not measured)"
     log(f"[kernels] {name} {shape}: max_abs_err {err}, kernel {ms:.4f} ms{device}, plain {plain_ms:.4f} ms")
     if err:
         fail(f"{name} disagrees with its plain version")
-    results.setdefault(name, []).append((err, ms, plain_ms, work, shape))
+    results.setdefault(name, []).append((err, ms, plain_ms, work, shape, dms, ptx))
+
+
+def _merge(results, more):
+    """Append the runs of `more` to `results`, kernel by kernel."""
+    for name, runs in more.items():
+        results.setdefault(name, []).extend(runs)
+    return results
 
 
 def _ec_inputs(curve, n, rng, device):
@@ -332,26 +391,48 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
         nt, c, node = nt // M, c * M, inner
 
     # K3 / K4 over BN254 G1 and G2 at 2^log_m points
-    m = 1 << log_m
     for curve in (BN254_G1, BN254_G2):
-        P, Q, Qa = _ec_inputs(curve, m, rng, dev)
-        cases = (
-            ("ec_add", "add", lambda: ec_kernel.ec_add(curve, P, Q), lambda: ec_kernel.ec_add_plain(curve, P, Q, False)),
-            ("ec_add", "madd", lambda: ec_kernel.ec_add(curve, P, Qa, True), lambda: ec_kernel.ec_add_plain(curve, P, Qa, True)),
-            ("ec_dbl", "dbl", lambda: ec_kernel.ec_dbl(curve, P), lambda: ec_kernel.ec_dbl_plain(curve, *P)),
-        )
-        n_limbs, ext = curve.base.n_limbs, curve.ext
-        for kname, op, kern, plain in cases:
-            got, exp = kern(), plain()
-            ms = _time(kern, 20, dev)
-            pms = _time(plain, 2, dev)
-            # rows 0-255 have P = Q: the add kernels also run the doubling there
-            prod, sqr = EC_PRODUCTS[op, ext]
-            dprod, dsqr = EC_PRODUCTS["dbl", ext] if op != "dbl" else (0, 0)
-            words = _mont_words(n_limbs, m * prod + min(256, m) * dprod, m * sqr + min(256, m) * dsqr)
-            coords = (6 + 3) if op != "dbl" else (3 + 3)
-            _check(kname, results, list(got), list(exp), ms, pms, f"{curve.name} {op} (n={m})",
-                   (words, coords * ext * n_limbs * m * 4), kern)
+        _ec_checks(curve, 1 << log_m, rng, dev, results)
+    return results
+
+
+def _ec_checks(curve, m, rng, dev, results):
+    """K3 (add, madd) and K4 against their plain versions at m points of
+    `curve`, with every mask case (`_ec_inputs`)."""
+    from openzl_tpu_torch.ops import ec_kernel
+
+    P, Q, Qa = _ec_inputs(curve, m, rng, dev)
+    cases = (
+        ("ec_add", "add", lambda: ec_kernel.ec_add(curve, P, Q), lambda: ec_kernel.ec_add_plain(curve, P, Q, False)),
+        ("ec_add", "madd", lambda: ec_kernel.ec_add(curve, P, Qa, True), lambda: ec_kernel.ec_add_plain(curve, P, Qa, True)),
+        ("ec_dbl", "dbl", lambda: ec_kernel.ec_dbl(curve, P), lambda: ec_kernel.ec_dbl_plain(curve, *P)),
+    )
+    n_limbs, ext = curve.base.n_limbs, curve.ext
+    for kname, op, kern, plain in cases:
+        got, exp = kern(), plain()
+        ms = _time(kern, 20, dev)
+        pms = _time(plain, 2, dev)
+        # rows 0-255 have P = Q: the add kernels also run the doubling there
+        prod, sqr = EC_PRODUCTS[op, ext]
+        dprod, dsqr = EC_PRODUCTS["dbl", ext] if op != "dbl" else (0, 0)
+        words = _mont_words(n_limbs, m * prod + min(256, m) * dprod, m * sqr + min(256, m) * dsqr)
+        coords = (6 + 3) if op != "dbl" else (3 + 3)
+        _check(kname, results, list(got), list(exp), ms, pms, f"{curve.name} {op} (n={m})",
+               (words, coords * ext * n_limbs * m * 4), kern, (f"ec_{op}_kernel", n_limbs // 2, ext))
+
+
+def phase_kernels_bls(device="cuda", log_m: int = 16, seed: int = 2):
+    """Phase 3b: K3 (add, madd) and K4 at 24 limbs, over BLS12-381 G1 and
+    G2 at 2^log_m points, against their plain versions."""
+    import torch
+
+    from openzl_tpu_torch.proof_systems import BLS12_381
+
+    dev = torch.device(device)
+    rng = random.Random(seed)
+    results = {}
+    for curve in (BLS12_381.g1, BLS12_381.g2):
+        _ec_checks(curve, 1 << log_m, rng, dev, results)
     return results
 
 
@@ -405,14 +486,25 @@ def _record_scans(fn):
     return seen
 
 
-def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
+def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda", default: bool = False):
+    """Phase 5 over BN254, or with `default` phase 5c: the same slice
+    through `Groth16()` with no arguments (BLS12-381 on the card; on the
+    CPU, `Groth16(device="cpu")`), whose K3, K4, K9 and scan launches must
+    all be at 24 limbs. Returns (launches during the proves, their walls,
+    the B2 MSM's fold inputs, the request's lifted scans' inputs)."""
     import torch
 
     from openzl_tpu_torch.eclair import circuits
-    from openzl_tpu_torch.proof_systems import BN254, Groth16
+    from openzl_tpu_torch.proof_systems import BLS12_381, BN254, Groth16
     from openzl_tpu_torch.utils import profile as prof
 
-    g16 = Groth16(BN254, device)
+    if default:
+        g16 = Groth16() if device == "cuda" else Groth16(device=device)
+        if g16.pairing is not BLS12_381:
+            fail(f"Groth16() picks {g16.pairing.name}, not bls12_381")
+    else:
+        g16 = Groth16(BN254, device)
+    tag = "slice" if not default else f"slice {g16.pairing.name}"
     cuda = g16.device.type == "cuda"
     params = circuits.poseidon_params(g16.fr)
     p = g16.fr.modulus
@@ -420,11 +512,11 @@ def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
     witness, digest = circuits.chain_inputs(params, chain, rng)
     t0 = time.perf_counter()
     cs = circuits.poseidon_chain(g16.context_compiler(), params, chain)
-    log(f"[slice] {chain} links: {cs.num_constraints} constraints, {cs.num_variables} variables, "
+    log(f"[{tag}] {chain} links: {cs.num_constraints} constraints, {cs.num_variables} variables, "
         f"circuit build {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     pk = g16.compile(cs, rng)
-    log(f"[slice] compile {time.perf_counter() - t0:.1f} s, domain 2^{pk.domain_log2}; stages: "
+    log(f"[{tag}] compile {time.perf_counter() - t0:.1f} s, domain 2^{pk.domain_log2}; stages: "
         + ", ".join(f"{k} {v:.0f} ms" for k, v in g16.laps["compile"]))
     calc = g16.witness_calculator(cs)
 
@@ -445,21 +537,23 @@ def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
         wall = time.perf_counter() - t0
         walls.append(wall)
         ok = g16.verify(pk.vk, [digest], proof)
-        log(f"[slice] prove {i + 1}: {wall * 1e3:.1f} ms (witness {t_wit * 1e3:.1f} ms), verify {ok}; "
+        log(f"[{tag}] prove {i + 1}: {wall * 1e3:.1f} ms (witness {t_wit * 1e3:.1f} ms), verify {ok}; "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in g16.laps["prove"]))
         if not ok:
             fail(f"proof {i + 1} did not verify")
     launches = {k.name: k.launches for k in kernels}
+    # every group-law launch of the BLS12-381 path is over its 24-limb Fq
+    at24 = {k.name: k.by_limbs.get(24, 0) for k in kernels if k.name in EC_KERNELS}
     peak = f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB" if cuda else "not measured"
-    log(f"[slice] launches during the {proofs} proves: {launches}; peak device memory {peak}")
+    log(f"[{tag}] launches during the {proofs} proves: {launches}; peak device memory {peak}")
     for k in kernels:
         if k.name in ("mont_mul", "ec_add", "ec_dbl", "ec_lifted_scan"):
-            log(f"[slice] {k.name} launches by batch (rounded up to a power of two): "
+            log(f"[{tag}] {k.name} launches by batch (rounded up to a power of two): "
                 + ", ".join(f"{w}: {n}" for w, n in sorted(k.by_width.items())))
     before = {k.name: k.launches for k in kernels}
     report = prof.profile(request)
     during = {k.name: k.launches - before[k.name] for k in kernels}
-    log(f"[profile] one more warm {chain}-link request; its laps: "
+    log(f"[profile] one more warm {chain}-link {g16.pairing.name} request; its laps: "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in g16.laps["prove"]) + f"; launches {during}")
     for line in report.lines():
         log(f"[profile] {line}")
@@ -467,10 +561,14 @@ def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
         fail("the profiler recorded no device activity")
     if g16.verify(pk.vk, [(digest + 1) % p], proof):
         fail("fuzzed public input accepted")
-    log("[slice] fuzzed public input rejected")
+    log(f"[{tag}] fuzzed public input rejected")
     missing = [n for n, c in launches.items() if c == 0]
     if missing and cuda:
         fail(f"kernels never launched on the main path: {missing}")
+    if default:
+        log(f"[{tag}] launches at 24 limbs during the {proofs} proves: {at24}")
+        if cuda and not all(at24.values()):
+            fail(f"kernels never launched at 24 limbs on the BLS12-381 path: {[n for n, c in at24.items() if not c]}")
     # the B2 MSM's fold inputs of one more request, for K9's check in phase 7
     from openzl_tpu_torch.fields import limb
     from openzl_tpu_torch.ops import msm
@@ -478,7 +576,7 @@ def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda"):
     z_can = limb.tensor(calc.evaluate_limbs([digest], witness), g16.device)
     b2_fold = msm.fold_inputs(g16.pairing.g2, [(z_can, pk.b_g2_query)])
     scans = _record_scans(request)
-    log("[slice] the lifted scans of one more request: " + ", ".join(
+    log(f"[{tag}] the lifted scans of one more request: " + ", ".join(
         f"{curve.name} l = {tflag.shape[0]} ({int(tflag.sum())} flagged)" for curve, _, tflag in scans))
     return launches, walls, b2_fold, scans
 
@@ -544,7 +642,8 @@ def phase_scan(scans, device="cuda", reps: int = 20, seed: int = 5):
         _check("ec_lifted_scan", results, list(got), list(exp), ms, pms,
                f"{curve.name} chunk totals of the request (l={l}, r={R}, {adds} adds)",
                (_mont_words(curve.base.n_limbs, adds * prod, adds * sqr), l * (6 * coord + 1)),
-               lambda: ec_kernel.lifted_scan(curve, totals, tflag))
+               lambda: ec_kernel.lifted_scan(curve, totals, tflag),
+               [(k, curve.base.n_limbs // 2, curve.ext) for k in PTXAS_KERNELS[2:5]])
     rng = random.Random(seed)
     sizes = sorted({1, 3, R - 1, R, R + 1, 5 * R + 3})
     shipped = ec_kernel.SCAN_NARROW
@@ -843,17 +942,19 @@ def _fold_check(name, results, curve, fold_in, device, reps):
     moved = E * 16 + pts.x.shape[-1] * 2 * coord + l * (3 * coord + 1) + width * (3 * coord + 9)
     _check("fold_madd", results, flat(got), flat(exp), ms, pms,
            f"{name}: {E} entries, r={r}, {l} chunks, c={c}, {W} windows, {starts} segments",
-           (_mont_words(n_limbs, (E - starts) * prod, (E - starts) * sqr), moved), lambda: ec_kernel.fold_madd(*args))
+           (_mont_words(n_limbs, (E - starts) * prod, (E - starts) * sqr), moved), lambda: ec_kernel.fold_madd(*args),
+           ("fold_kernel", n_limbs // 2, ext))
 
 
 def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int = 20, log_mul: int = 11,
-              reps: int = 20, seed: int = 7):
-    """Phase 7. Returns (kernel results, launches of the slice's kernels)."""
+              reps: int = 20, seed: int = 7, pairing=None):
+    """Phase 7 over BN254 (`pairing` None), or phase 7b over another
+    pairing (BLS12-381: K9 and every group-law launch at 24 limbs).
+    Returns (kernel results, launches of the slice's kernels)."""
     import torch
 
     from openzl_tpu_torch.curves import jacobian as jac
     from openzl_tpu_torch.fields import limb
-    from openzl_tpu_torch.fields.spec import BN254_FR
     from openzl_tpu_torch.ops import msm, ntt, ntt_kernel
     from openzl_tpu_torch.ops.poly import DensePoly, Radix2Domain
     from openzl_tpu_torch.proof_systems import BN254, KZG, KZGParams
@@ -862,7 +963,9 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
     dev = torch.device(device)
     rng = random.Random(seed)
     results = {}
-    spec, g1, r = BN254_FR, BN254.g1, BN254.r
+    pairing = pairing or BN254
+    spec, g1, r = pairing.g1.scalar, pairing.g1, pairing.r
+    name = pairing.name
 
     # K8: one middle stage of a 2^12 transform, batch 1 and 4
     log_n = 12
@@ -877,7 +980,7 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
         ms = _time(lambda: ntt_kernel.stage(spec, x, table, 5), reps * 5, dev)
         pms = _time(lambda: ntt_kernel.stage_plain(spec, x, table, 5), 3, dev)
         half = (batch << log_n) // 2
-        _check("butterfly", results, [got], [exp], ms, pms, f"bn254_fr stage 5 of 2^{log_n} (batch {batch})",
+        _check("butterfly", results, [got], [exp], ms, pms, f"{spec.name} stage 5 of 2^{log_n} (batch {batch})",
                (_mont_words(16, half), (4 * half + (1 << log_n) // 2) * 16 * 4),
                lambda: ntt_kernel.stage(spec, x, table, 5))
 
@@ -888,24 +991,24 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
             fail(f"the NTT routes disagree at 2^{log_n}")
         t_stage = _time(lambda: ntt._ntt_core(spec, x, False), reps, dev)
         t_four = _time(lambda: ntt.fourstep_transform(spec, x, False), reps, dev)
-        log(f"[kzg] NTT 2^{log_n} BN254 Fr: per-stage route (K8) {t_stage:.4f} ms, four-step route (K2) "
+        log(f"[kzg] NTT 2^{log_n} {spec.name}: per-stage route (K8) {t_stage:.4f} ms, four-step route (K2) "
             f"{t_four:.4f} ms; the same evaluations")
 
     # K9: the G1 fold of a 2^log_d-point commit, the Fq2 fold of phase 5's B2
-    kzg = KZG(BN254, backend="device", device=dev)
+    kzg = KZG(pairing, backend="device", device=dev)
     d = (1 << log_d) - 1
     params = kzg.setup(d, random.Random(seed))
     coeffs = [rng.randrange(r) for _ in range(d + 1)]
     scalars = limb.tensor(limb.pack(spec, coeffs), dev)
-    _fold_check(f"bn254 G1 commit of 2^{log_d}", results, g1, msm.fold_inputs(g1, [(scalars, params.powers_g1)]),
+    _fold_check(f"{name} G1 commit of 2^{log_d}", results, g1, msm.fold_inputs(g1, [(scalars, params.powers_g1)]),
                 dev, reps)
     if b2_fold is not None:
-        _fold_check("bn254 G2 B2 MSM of phase 5", results, BN254.g2, b2_fold, dev, reps)
+        _fold_check(f"{name} G2 B2 MSM of the Groth16 slice", results, pairing.g2, b2_fold, dev, reps)
     few = limb.tensor(limb.pack(spec, [9, 9, 4]), dev)
     small = msm.fold_inputs(g1, [(few, jac.take(params.powers_g1, torch.arange(3, device=dev)))], 4, 4)
     if small[3] != 1:
         fail(f"the small fold has r = {small[3]}, not the smallest chunk length 1")
-    _fold_check("bn254 G1 MSM of 3 entries (r = 1)", results, g1, small, dev, reps)
+    _fold_check(f"{name} G1 MSM of 3 entries (r = 1)", results, g1, small, dev, reps)
 
     # the slice through its entry points, launch counters zeroed before
     for k in all_kernels:
@@ -915,7 +1018,7 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
     def step(label, fn):
         out, ms = _wall(fn, dev)
         steps.append((label, ms, _peak(dev)))
-        log(f"[kzg] {label}: {ms:.3f} ms wall, peak {_peak(dev)}")
+        log(f"[kzg] {name} {label}: {ms:.3f} ms wall, peak {_peak(dev)}")
         return out
 
     params = step(f"setup degree 2^{log_d} - 1", lambda: kzg.setup(d, random.Random(seed)))
@@ -933,9 +1036,9 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
     bad = claims[:2] + [(C, zs[2], (opened[2][0] + 1) % r, opened[2][1])] + claims[3:]
     if kzg.batch_verify(params, bad, rng):
         fail("batch_verify accepted a changed v")
-    log("[kzg] v + 1 rejected by verify, a changed v by batch_verify")
+    log(f"[kzg] {name}: v + 1 rejected by verify, a changed v by batch_verify")
     blob = step("params to_bytes", params.to_bytes)
-    loaded = step("params from_bytes + device_params", lambda: kzg.device_params(KZGParams.from_bytes(BN254, blob)))
+    loaded = step("params from_bytes + device_params", lambda: kzg.device_params(KZGParams.from_bytes(pairing, blob)))
     if step("commit with the loaded params", lambda: kzg.commit(loaded, coeffs)) != C:
         fail("the loaded params commit to another point")
     a, b = (DensePoly.rand(spec, (1 << log_mul) - 1, rng, device=dev) for _ in range(2))
@@ -949,14 +1052,18 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
                   lambda: big.divide_by_vanishing_poly(dom, on_device=True))
     if big.evaluate(z) != (q.evaluate(z) * dom.evaluate_vanishing(z) + rem.evaluate(z)) % r or rem.degree >= dom.size:
         fail("divide_by_vanishing_poly is wrong at a random point")
-    log("[kzg] the product and the division hold at a random point")
+    log(f"[kzg] {name}: the product and the division hold at a random point")
     launches = {k.name: k.launches for k in all_kernels}
-    log(f"[kzg] launches during the slice: {launches}")
+    log(f"[kzg] {name} launches during the slice: {launches}")
     missing = [n for n in ("butterfly", "fold_madd") if launches[n] == 0]
+    if pairing is not BN254:
+        at24 = {k.name: k.by_limbs.get(24, 0) for k in all_kernels if k.name in EC_KERNELS}
+        log(f"[kzg] {name} launches at 24 limbs during the slice: {at24}")
+        missing += [] if at24["fold_madd"] else ["fold_madd at 24 limbs"]
     if missing and dev.type == "cuda":
-        fail(f"kernels never launched on the KZG slice: {missing}")
+        fail(f"kernels never launched on the {name} KZG slice: {missing}")
     report = prof.profile(lambda: kzg.commit(params, coeffs))
-    log(f"[profile] one more commit of degree 2^{log_d} - 1")
+    log(f"[profile] one more {name} commit of degree 2^{log_d} - 1")
     for line in report.lines(8):
         log(f"[profile] {line}")
     if dev.type == "cuda" and not report.device_events:
@@ -978,7 +1085,7 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--chain", type=int, default=512, help="Poseidon chain links of the slice")
+    ap.add_argument("--chain", type=int, default=512, help="Poseidon chain links of the slices")
     ap.add_argument("--proofs", type=int, default=3, help="prove requests answered")
     args = ap.parse_args()
 
@@ -986,30 +1093,38 @@ def main() -> None:
         fail("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     name, smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
 
     import torch
 
     from openzl_tpu_torch.ops import ec_kernel, ntt_kernel, poseidon2_kernel, poseidon_kernel
+    from openzl_tpu_torch.proof_systems import BLS12_381
 
     groth16_kernels = [ntt_kernel.K1, ntt_kernel.K2, ec_kernel.K3, ec_kernel.K4, ec_kernel.K9, ec_kernel.K3S]
     hash_kernels = [poseidon_kernel.K5, poseidon_kernel.K6, poseidon2_kernel.K7]
     kzg_kernels = [ntt_kernel.K8]
     kernels = [*groth16_kernels[:4], *hash_kernels, ntt_kernel.K8, ec_kernel.K9, ec_kernel.K3S]
     results = phase_kernels()
+    bls = phase_kernels_bls()  # the BLS12-381 (24-limb) runs of K3, K4, K9 and the scan
     phase_roundtrip()
     launches, _, b2_fold, scans = phase_slice(args.chain, args.proofs, kernels, groth16_kernels)
-    results.update(phase_scan(scans))
+    _merge(results, phase_scan(scans))
     del scans  # the request's chunk totals (86 MB at 512 links) stay out of the later phases' peaks
+    bls_launches, _, bls_b2_fold, scans = phase_slice(args.chain, args.proofs, kernels, groth16_kernels, default=True)
+    _merge(bls, phase_scan(scans, seed=6))
+    del scans
     hash_results, hash_launches = phase_hash(kernels)
-    results.update(hash_results)
+    _merge(results, hash_results)
     launches = {**launches, **{k.name: hash_launches[k.name] for k in hash_kernels}}
     missing = [k.name for k in hash_kernels if hash_launches[k.name] == 0]
     if missing:
         fail(f"kernels never launched on the hash slice: {missing}")
     kzg_results, kzg_launches = phase_kzg(kernels, b2_fold)
-    results.update(kzg_results)
+    _merge(results, kzg_results)
     launches.update({k.name: kzg_launches[k.name] for k in kzg_kernels})
+    # BLS12-381 KZG at the EIP-4844 blob size (4096 coefficients)
+    bls_kzg, bls_kzg_launches = phase_kzg(kernels, bls_b2_fold, log_d=12, log_big=0, seed=8, pairing=BLS12_381)
+    _merge(bls, {k: v for k, v in bls_kzg.items() if k in EC_KERNELS})
 
     # bound: the larger of the word products over the card's 32-bit integer
     # multiply rate (64 multiply issues per clock per SM, two per 32x32->64
@@ -1035,16 +1150,29 @@ def main() -> None:
                          ("#14 experiments/dif_probe.py kernel_A, kernel_C", (4, 512, 128))):
         moved = 2 * 4 * shape[0] * shape[1] * shape[2]
         log(f"[bound] {label} on {shape}: {moved} bytes, bound {bound((0, moved))[0]:.6f} ms (bytes)")
-    for name, runs in results.items():
-        for _, ms, _, work, shape in runs:
-            b_ms, b_by = bound(work)
-            log(f"[bound] {name} {shape}: bound {b_ms:.4f} ms ({b_by}), kernel {ms:.4f} ms, "
-                f"{b_ms / ms:.1%} of the bound")
+    for runs in (results, bls):
+        for kname, entries in runs.items():
+            for _, ms, _, work, shape, _, _ in entries:
+                b_ms, b_by = bound(work)
+                log(f"[bound] {kname} {shape}: bound {b_ms:.4f} ms ({b_by}), kernel {ms:.4f} ms, "
+                    f"{b_ms / ms:.1%} of the bound")
+
+    def ptx(key):
+        """{kernel: {"registers": R, "spill_bytes": S}} of a run's ptxas key(s)."""
+        keys = [] if key is None else [key] if isinstance(key, tuple) else key
+        return {k[0]: dict(zip(("registers", "spill_bytes"), ptxas.get(k, (None, None)))) for k in keys}
+
+    def run_row(run):
+        err, ms, pms, work, shape, dms, key = run
+        b_ms, b_by = bound(work)
+        return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
+                "bound_ms": b_ms, "bound_by": b_by, "ptxas": ptx(key)}
+
     rows = []
     for k in kernels:
         runs = results[k.name]
         b_ms, b_by = bound(runs[0][3])
-        rows.append({
+        row = {
             "name": k.name, "route": k.route, "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name],
             "max_abs_err": max(r[0] for r in runs),
@@ -1054,7 +1182,16 @@ def main() -> None:
             # over a prime field, a radix-2 Montgomery butterfly, a group
             # law, a curve fold or a Poseidon permutation
             "library_ms": None,
-        })
+        }
+        if k.name in EC_KERNELS:
+            # the 24-limb instantiations: launches on the BLS12-381 Groth16
+            # slice (its proves) and KZG slice, and each run of phase 3b,
+            # 5b (the BLS12-381 request's scans), 7b
+            row["max_abs_err"] = max(row["max_abs_err"], *(r[0] for r in bls[k.name]))
+            row["bls12_381"] = {"launches": bls_launches[k.name], "kzg_launches": bls_kzg_launches[k.name],
+                                "runs": [run_row(r) for r in bls[k.name]]}
+            row["bn254_ptxas"] = ptx(runs[0][6])
+        rows.append(row)
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -5,15 +5,18 @@ exclusive prefixes of the fold's chunk totals).
 Port of `openzl_tpu/ops/ec_kernel.py` `ec_op` and `fold_madd`, and of the
 reference's scan of the chunk totals (`openzl_tpu/ops/scan_utils.py`
 `inclusive_scan` with the lifted combine of `openzl_tpu/ops/msm.py:352`).
-CUDA sources: `openzl_tpu_torch/csrc/ec_kernel.cu`, `fold_kernel.cu` and
-`ec.cuh` (design notes there); this module holds the wrappers, launch
-counters and plain torch versions.
+CUDA sources: `openzl_tpu_torch/csrc/ec_kernel.cu`, `fold_kernel.cu`,
+`ec.cuh` (design notes there), their templates `ec_kernel.cuh` and
+`fold.cuh`, and the BLS12-381 (24-limb) instantiations
+`ec_kernel_w12_g1.cu`, `ec_kernel_w12_g2.cu` and `fold_kernel_w12.cu`;
+this module holds the wrappers, launch counters and plain torch versions.
 
 Coordinates are Montgomery limb tensors (n_limbs, *batch) over Fq (G1) or
 (n_limbs, 2, *batch) over Fq2 (G2). Formulas and special-case masks follow
 the reference kernels exactly (add-2007-bl, madd-2007-bl, dbl-2009-l or
 the generic-a double; P = -Q gives X = Y = 1, Z = 0), so Jacobian limbs are
-bit-equal to `ec_kernel.ec_op`. A CUDA tensor launches the kernel, a CPU
+bit-equal to `ec_kernel.ec_op`. A CUDA tensor launches the kernel (or
+raises, for a field with no built instantiation: `check_built`), a CPU
 tensor runs the plain version.
 """
 
@@ -58,6 +61,11 @@ SCAN_R = 4
 #: a level of at most SCAN_NARROW elements runs Hillis-Steele steps instead
 #: (one add of latency per doubling, where a level of chunks costs SCAN_R + 1)
 SCAN_NARROW = 16384
+#: base-field limb counts the CUDA kernels of this module are built for:
+#: 16 (BN254 Fq, 8 words: csrc/ec_kernel.cu, fold_kernel.cu) and 24
+#: (BLS12-381 Fq, 12 words: csrc/ec_kernel_w12_g1.cu, ec_kernel_w12_g2.cu,
+#: fold_kernel_w12.cu)
+BUILT_LIMBS = (16, 24)
 
 
 def field_ops(curve: CurveSpec, plain: bool = False):
@@ -184,8 +192,24 @@ def _const_words(curve: CurveSpec, value: int) -> np.ndarray:
     return np.array(words, dtype=np.uint32)
 
 
+def check_built(curve: CurveSpec) -> None:
+    """Raise, before any launch, for a curve whose field has no built
+    instantiation of K3, K4, K9 and the scan: 16 or 24 limbs (`BUILT_LIMBS`)
+    and the top 32-bit word of p below 0x7FFFFFFF (`F1c`'s bound)."""
+    n = curve.base.n_limbs
+    if n not in BUILT_LIMBS:
+        raise ValueError(f"{curve.name}: the EC kernels are built for base fields of "
+                         f"{' or '.join(map(str, BUILT_LIMBS))} limbs, not {n}")
+    top = curve.base.modulus >> (16 * n - 32)
+    if top >= 0x7FFFFFFF:
+        raise ValueError(f"{curve.name}: the EC kernels need the top word of p below 0x7FFFFFFF "
+                         f"({n} limbs, top word {top:#x})")
+
+
 def _flat(curve: CurveSpec, coords):
-    """Check and flatten coordinates to (n_limbs[, 2], N) contiguous int32."""
+    """Check the curve (`check_built`) and flatten coordinates to
+    (n_limbs[, 2], N) contiguous int32."""
+    check_built(curve)
     lead = 1 + (curve.ext == 2)
     shape = coords[0].shape
     head = shape[:lead]
@@ -221,7 +245,7 @@ def ec_add(curve: CurveSpec, P, Q, mixed: bool = False):
         build.stream_ptr(flat[0]),
     )
     build.check(code, "K3 ec_add")
-    K3.count(N)
+    K3.count(N, curve.base.n_limbs)
     return tuple(o.reshape(shape) for o in outs)
 
 
@@ -238,7 +262,7 @@ def ec_dbl(curve: CurveSpec, P):
         words.ctypes.data, n0, beta, has_a, a_words.ctypes.data, build.stream_ptr(flat[0]),
     )
     build.check(code, "K4 ec_dbl")
-    K4.count(N)
+    K4.count(N, curve.base.n_limbs)
     return tuple(o.reshape(shape) for o in outs)
 
 
@@ -353,7 +377,7 @@ def fold_madd(curve: CurveSpec, pts, keys, pidx, r: int, width: int):
         _const_words(curve, 1).ctypes.data, build.stream_ptr(keys),
     )
     build.check(code, "K9 fold_madd")
-    K9.count(keys.shape[0])
+    K9.count(keys.shape[0], curve.base.n_limbs)
     return totals, tflag, buckets, bflag, bchunk
 
 
@@ -457,7 +481,7 @@ def _scan_level(curve: CurveSpec, xs, flags, args):
             out_f = torch.empty_like(flags)
             ptrs = [t.data_ptr() for t in (*xs, flags, *out, out_f)] + [0] * 4
             build.check(lib.ozl_ec_lifted_scan(2, curve.ext, *ptrs, n, d, *args), "K3 lifted scan (step)")
-            K3S.count(n)
+            K3S.count(n, curve.base.n_limbs)
             xs, flags, d = out, out_f, 2 * d
         return xs
     m = -(-n // SCAN_R)
@@ -467,12 +491,12 @@ def _scan_level(curve: CurveSpec, xs, flags, args):
     tot_f = torch.empty(m, dtype=flags.dtype, device=flags.device)
     ptrs = [t.data_ptr() for t in (*xs, flags, *pre, pre_f, *tot, tot_f)]
     build.check(lib.ozl_ec_lifted_scan(1, curve.ext, *ptrs, n, 0, *args), "K3 lifted scan (phase 1)")
-    K3S.count(n)
+    K3S.count(n, curve.base.n_limbs)
     if m > 1:
         off = _scan_level(curve, tot, tot_f, args)
         ptrs = [t.data_ptr() for t in off] + [0] + [t.data_ptr() for t in (*pre, pre_f)] + [0] * 4
         build.check(lib.ozl_ec_lifted_scan(3, curve.ext, *ptrs, n, 0, *args), "K3 lifted scan (phase 3)")
-        K3S.count(n)
+        K3S.count(n, curve.base.n_limbs)
     return pre
 
 

@@ -107,8 +107,11 @@ def _ptxas(text: str) -> list:
 
 
 def _fold_sources() -> dict:
-    """name -> (fold_kernel.cu, ec.cuh) texts of each K9 build to time."""
+    """name -> (fold_kernel.cu, fold.cuh, ec.cuh) texts of each K9 build to
+    time (16 limbs: the builds compile fold_kernel.cu alone, with
+    -DOZL_NO_W12)."""
     fold = (build.CSRC / "fold_kernel.cu").read_text()
+    tmpl = (build.CSRC / "fold.cuh").read_text()
     ec = (build.CSRC / "ec.cuh").read_text()
     shipped = "constexpr int kThreads = 128;\nconstexpr int kMinBlocksG1 = 4;\nconstexpr int kMinBlocksG2 = 2;"
     if shipped not in fold:
@@ -116,15 +119,15 @@ def _fold_sources() -> dict:
     builds = {}
     for t, g1, g2 in FOLD_BOUNDS:
         bounds = f"constexpr int kThreads = {t};\nconstexpr int kMinBlocksG1 = {g1};\nconstexpr int kMinBlocksG2 = {g2};"
-        builds[f"{t} threads, {g1} / {g2} blocks per SM"] = (fold.replace(shipped, bounds), ec)
-    kernel = "template <class F, int MIN_BLOCKS>\n__global__"
-    direct = fold.replace(kernel, DIRECT_SRC + kernel, 1).replace(
+        builds[f"{t} threads, {g1} / {g2} blocks per SM"] = (fold.replace(shipped, bounds), tmpl, ec)
+    kernel = "template <class F, int THREADS, int MIN_BLOCKS>\n__global__"
+    direct = tmpl.replace(kernel, DIRECT_SRC + kernel, 1).replace(
         "Src src{pts, ring + threadIdx.x * Src::STRIDE};", "DirectRead<T> src{pts};")
     no_tails = ec.replace("if (key != next) {  // segment tail", "if (false) {  // segment tail")
-    builds["direct reads"] = (direct, ec)
-    builds["no tail stores"] = (fold, no_tails)
-    for name, (f, e) in builds.items():
-        if name != "128 threads, 4 / 2 blocks per SM" and (f, e) == (fold, ec):
+    builds["direct reads"] = (fold, direct, ec)
+    builds["no tail stores"] = (fold, tmpl, no_tails)
+    for name, texts in builds.items():
+        if name != "128 threads, 4 / 2 blocks per SM" and texts == (fold, tmpl, ec):
             raise RuntimeError(f"the {name} build did not change the source")
     return builds
 
@@ -145,18 +148,20 @@ def _start_builds(parts):
         start("microbench", exe, [nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(exe),
                                   str(HERE / "field_microbench.cu")])
     if "k9" in parts:
-        for i, (name, (fold, ec)) in enumerate(_fold_sources().items()):
+        for i, (name, (fold, tmpl, ec)) in enumerate(_fold_sources().items()):
             d = OUT / f"fold_{i}"
             d.mkdir(exist_ok=True)
             (d / "fold_kernel.cu").write_text(fold)
+            (d / "fold.cuh").write_text(tmpl)
             (d / "ec.cuh").write_text(ec)
             so = d / "fold.so"
-            start(name, so, [nvcc, *build.NVCC_FLAGS, "-I", str(d), "-I", str(build.CSRC), "-shared", "-o",
-                             str(so), str(d / "fold_kernel.cu")])
+            start(name, so, [nvcc, *build.NVCC_FLAGS, "-DOZL_NO_W12", "-I", str(d), "-I", str(build.CSRC),
+                             "-shared", "-o", str(so), str(d / "fold_kernel.cu")])
     if "k3" in parts:
         for i, (g1, g2, field) in enumerate(EC_BUILDS):
             so = OUT / f"ec_{i}.so"
-            flags = [f"-DOZL_EC_MIN_BLOCKS_G1={g1}", f"-DOZL_EC_MIN_BLOCKS_G2={g2}", f"-DOZL_EC_BASE={field}"]
+            flags = [f"-DOZL_EC_MIN_BLOCKS_G1={g1}", f"-DOZL_EC_MIN_BLOCKS_G2={g2}", f"-DOZL_EC_BASE={field}",
+                     "-DOZL_NO_W12"]
             start(f"ec: {field}, {g1} / {g2} blocks per SM", so,
                   [nvcc, *build.NVCC_FLAGS, *flags, "-I", str(build.CSRC), "-shared", "-o", str(so),
                    str(build.CSRC / "ec_kernel.cu")])

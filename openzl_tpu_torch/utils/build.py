@@ -23,6 +23,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
+from typing import Optional
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -38,9 +40,11 @@ _LIB = None
 class KernelInfo:
     """One hand-written kernel: where it lives, what it replaces, and how
     many times a wrapper has launched it (plain counters the smoke run
-    zeroes before driving the main path): in all, and by the launch's batch
+    zeroes before driving the main path): in all, by the launch's batch
     rounded up to a power of two (`by_width`), so a ranking of the kernels
-    can read the shapes the path really gives them."""
+    can read the shapes the path really gives them, and by the field's limb
+    count where the wrapper gives it (`by_limbs`: 16 for BN254 Fq, 24 for
+    BLS12-381 Fq)."""
 
     name: str
     source: str
@@ -48,16 +52,21 @@ class KernelInfo:
     route: str = "cuda"
     launches: int = 0
     by_width: dict = dataclasses.field(default_factory=dict)
+    by_limbs: dict = dataclasses.field(default_factory=dict)
 
-    def count(self, batch: int) -> None:
-        """Record one launch over `batch` elements (states, points, ...)."""
+    def count(self, batch: int, limbs: Optional[int] = None) -> None:
+        """Record one launch over `batch` elements (states, points, ...) of
+        a field of `limbs` 16-bit limbs."""
         self.launches += 1
         bucket = 1 << (int(batch) - 1).bit_length() if batch > 0 else 0
         self.by_width[bucket] = self.by_width.get(bucket, 0) + 1
+        if limbs is not None:
+            self.by_limbs[limbs] = self.by_limbs.get(limbs, 0) + 1
 
     def reset(self) -> None:
         self.launches = 0
         self.by_width = {}
+        self.by_limbs = {}
 
 
 def _sources():
@@ -87,24 +96,37 @@ def build() -> pathlib.Path:
     """Compile the kernels if the hashed library is missing; returns its
     path. Each `.cu` file compiles to an object in its own nvcc process
     (in parallel), then one link. The `-Xptxas -v` report (registers,
-    spills) is kept beside the library as `<library>.log`."""
+    spills) is kept beside the library as `<library>.log`, after one line
+    per file, "nvcc <file>: <seconds> s", the wall time of its process."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{out.stem}.{os.getpid()}"
+    t0 = time.perf_counter()
     procs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
         procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    report, failed = [], []
-    for obj, proc in procs:
+    results = [None] * len(procs)
+
+    def wait(i, proc):  # each process's output is read as it comes (no full pipe)
         text, _ = proc.communicate()
-        report.append(text)
+        results[i] = (text, time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(i, proc)) for i, (_, proc) in enumerate(procs)]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    report, failed = [], []
+    for (obj, proc), (_, secs) in zip(procs, results):
+        report.append(f"nvcc {obj.name.split('.')[-2]}.cu: {secs:.1f} s\n")
         if proc.returncode != 0:
             failed.append(obj.name)
+    report += [text for text, _ in results]
     log = out.with_suffix(".log")
     if not failed:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

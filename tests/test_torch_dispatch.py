@@ -5,7 +5,10 @@ points, and the K5 wrapper's choice of variant by batch.
 
 The launch path is driven on CPU tensors with the kernel library replaced
 by a recording stand-in (`_FakeLib`), whose K5 entry point computes the
-plain permutation on the buffers the wrapper hands it. Through it a BN254
+plain permutation on the buffers the wrapper hands it; another stand-in
+(`_RecordingLib`) shows that the EC wrappers refuse a field with no built
+instantiation (2 limbs; a p past `F1c`'s bound) before any launch, and
+launch BN254 (16 limbs) and BLS12-381 (24 limbs). Through it a BN254
 Merkle build, the slice's entry point, is held against the JAX package's
 Python-int Poseidon oracle (`CurrentPath`). Inputs come from seeded
 `random.Random` / numpy; every comparison is exact (tolerance 0)."""
@@ -26,7 +29,7 @@ from openzl_tpu.fields.spec import BN254_FR as REF_BN254_FR
 from openzl_tpu_torch.crypto.merkle.tree import MerkleParameters, MerkleTree
 from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
 from openzl_tpu_torch.curves import jacobian as jac
-from openzl_tpu_torch.curves.spec import BN254_G1, BN254_G2
+from openzl_tpu_torch.curves.spec import BLS12_381_G1, BLS12_381_G2, BN254_G1, BN254_G2
 from openzl_tpu_torch.fields import limb
 from openzl_tpu_torch.fields.spec import BN254_FR
 from openzl_tpu_torch.ops import ec_kernel, poseidon_kernel
@@ -133,3 +136,71 @@ def test_merkle_build_through_k5_launch_path_matches_reference(fake_card):
         ref_cur = ref_cur.push(leaves[:, i])
     assert [b for b, _ in fake.calls] == [6, 3, 2, 1, 1] and all(split for _, split in fake.calls)
     assert torch.equal(tree.root(), limb.tensor(np.asarray(ref_cur.root_digest), "cpu"))
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records every entry point called."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("ozl_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append(name) or 0
+
+
+def _wide_top_curve():
+    """A 16-limb curve whose p has its top 32-bit word above F1c's bound."""
+    import dataclasses
+
+    from openzl_tpu_torch.fields.spec import FieldSpec
+
+    return dataclasses.replace(BN254_G1, name="wide_top_g1", base=FieldSpec("wide_top_fq", (1 << 256) - 189))
+
+
+@pytest.mark.parametrize("which", ["toy", "wide_top"])
+def test_ec_wrappers_refuse_an_unbuilt_field_before_any_launch(which, monkeypatch):
+    """On a CUDA tensor (the wrappers' device check patched to "cuda"), K3,
+    K4, K9 and the scan raise a ValueError that names the curve and its
+    limb count for a field with no built instantiation (the 2-limb toy
+    curve; a 16-limb p past F1c's bound), and the library is never called."""
+    from openzl_tpu.curves.spec import toy_curve
+
+    curve = toy_curve() if which == "toy" else _wide_top_curve()
+    n = curve.base.n_limbs
+    fake = _RecordingLib()
+    monkeypatch.setattr(ec_kernel, "device_kind", lambda *t: "cuda")
+    monkeypatch.setattr(build, "lib", lambda: fake)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: None)
+    P = tuple(torch.zeros((n, 4), dtype=torch.int32) for _ in range(3))
+    keys = torch.zeros(4, dtype=torch.int64)
+    calls = (lambda: ec_kernel.ec_add(curve, P, P), lambda: ec_kernel.ec_add(curve, P, P, True),
+             lambda: ec_kernel.ec_dbl(curve, P),
+             lambda: ec_kernel.fold_madd(curve, P, keys, keys, 1, 2),
+             lambda: ec_kernel.lifted_scan(curve, P, torch.zeros(4, dtype=torch.bool)))
+    for call in calls:
+        with pytest.raises(ValueError, match=rf"{curve.name}.*\b{n}\b"):
+            call()
+    assert fake.calls == []
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2, BLS12_381_G1, BLS12_381_G2], ids=lambda c: c.name)
+def test_ec_wrappers_launch_the_built_fields(curve, monkeypatch):
+    """BN254 (16 limbs) and BLS12-381 (24 limbs) pass the check and reach
+    the library's entry points, each launch counted with its limb count."""
+    fake = _RecordingLib()
+    monkeypatch.setattr(ec_kernel, "device_kind", lambda *t: "cuda")
+    monkeypatch.setattr(build, "lib", lambda: fake)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: None)
+    for k in (ec_kernel.K3, ec_kernel.K4):
+        monkeypatch.setattr(k, "launches", 0)
+        monkeypatch.setattr(k, "by_width", {})
+        monkeypatch.setattr(k, "by_limbs", {})
+    ec_kernel.check_built(curve)
+    head = (curve.base.n_limbs,) + ((2,) if curve.ext == 2 else ())
+    P = tuple(torch.zeros(head + (4,), dtype=torch.int32) for _ in range(3))
+    ec_kernel.ec_add(curve, P, P)
+    ec_kernel.ec_dbl(curve, P)
+    assert fake.calls == ["ozl_ec_add", "ozl_ec_dbl"]
+    assert ec_kernel.K3.by_limbs == ec_kernel.K4.by_limbs == {curve.base.n_limbs: 1}

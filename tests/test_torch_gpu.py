@@ -21,14 +21,18 @@ from openzl_tpu_torch.crypto.merkle.tree import MerkleParameters, MerkleTree
 from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
 from openzl_tpu_torch.crypto.poseidon2 import Poseidon2
 from openzl_tpu_torch.curves import jacobian as jac
-from openzl_tpu_torch.curves.spec import BN254_G1, BN254_G2
+from openzl_tpu_torch.curves.spec import BLS12_381_G1, BLS12_381_G2, BN254_G1, BN254_G2
 from openzl_tpu_torch.fields import limb
 from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
 from openzl_tpu_torch.ops import ec_kernel, msm, ntt, ntt_kernel, poseidon2_kernel, poseidon_kernel
-from openzl_tpu_torch.proof_systems import BN254, KZG
+from openzl_tpu_torch.proof_systems import BLS12_381, BN254, KZG, Groth16
 from openzl_tpu_torch.ref import curve as ref
 
 pytestmark = pytest.mark.gpu
+
+#: the curves of the EC kernels: 16-limb (BN254) and 24-limb (BLS12-381)
+#: base fields
+EC_CURVES = [BN254_G1, BN254_G2, BLS12_381_G1, BLS12_381_G2]
 
 
 @pytest.fixture
@@ -74,7 +78,7 @@ def test_k2_kernel_and_ntt_match_cpu(cuda):
     assert torch.equal(ntt.coset_ntt(spec, x.to(cuda)).cpu(), ntt.coset_ntt(spec, x))
 
 
-@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
+@pytest.mark.parametrize("curve", EC_CURVES, ids=lambda c: c.name)
 def test_k3_k4_kernels_match_plain(cuda, curve):
     pts, qts = _points(curve, 12, 5)
     P = jac.double(curve, jac.from_affine_ints(curve, pts, cuda))
@@ -89,7 +93,7 @@ def test_k3_k4_kernels_match_plain(cuda, curve):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
+@pytest.mark.parametrize("curve", EC_CURVES, ids=lambda c: c.name)
 def test_k3_lifted_scan_matches_plain(cuda, curve, monkeypatch):
     """K3's lifted scan at the edge sizes of its chunks (l = 1, 3, R - 1, R,
     R + 1, 5 R + 3) with no, all and random flags, through chunks
@@ -113,7 +117,7 @@ def test_k3_lifted_scan_matches_plain(cuda, curve, monkeypatch):
         assert all(torch.equal(g, w) for g, w in zip(got, want)), (l, mode, narrow)
 
 
-@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
+@pytest.mark.parametrize("curve", EC_CURVES, ids=lambda c: c.name)
 def test_msm_matches_cpu(cuda, curve):
     pts, _ = _points(curve, 256, 13)
     rng = random.Random(14)
@@ -137,7 +141,7 @@ def test_k8_kernel_and_stage_route_match(cuda):
 
 
 @pytest.mark.parametrize("n_pts", [200, 2], ids=["r32", "r1"])
-@pytest.mark.parametrize("curve", [BN254_G1, BN254_G2], ids=lambda c: c.name)
+@pytest.mark.parametrize("curve", EC_CURVES, ids=lambda c: c.name)
 def test_k9_kernel_matches_plain(cuda, curve, n_pts):
     """Chunks of r = 32 (200 points, 12-bit scalars, 3 windows), and of the
     smallest r that `_chunk_len` picks (2 points, 4-bit scalars: at most 4
@@ -159,18 +163,62 @@ def test_k9_kernel_matches_plain(cuda, curve, n_pts):
             assert torch.equal(a, b)
 
 
-def test_kzg_on_cuda_matches_cpu(cuda):
-    gpu, cpu = KZG(BN254, backend="device", device=cuda), KZG(BN254, backend="device", device="cpu")
+@pytest.mark.parametrize("pairing", [BN254, BLS12_381], ids=lambda p: p.name)
+def test_kzg_on_cuda_matches_cpu(cuda, pairing):
+    gpu, cpu = KZG(pairing, backend="device", device=cuda), KZG(pairing, backend="device", device="cpu")
     params, params_cpu = gpu.setup(40, random.Random(31)), cpu.setup(40, random.Random(31))
     assert params.to_bytes() == params_cpu.to_bytes()
     rng = random.Random(32)
-    coeffs = [rng.randrange(BN254.r) for _ in range(41)]
+    coeffs = [rng.randrange(pairing.r) for _ in range(41)]
     C = gpu.commit(params, coeffs)
     assert C == cpu.commit(params_cpu, coeffs)
     z = rng.randrange(BN254.r)
     v, w = gpu.open(params, coeffs, z)
     assert (v, w) == cpu.open(params_cpu, coeffs, z)
     assert gpu.verify(params, C, z, v, w)
+
+
+def test_default_groth16_on_cuda_matches_cpu(cuda):
+    """`Groth16()` (BLS12-381 on the card, K3, K4, K9 and the scan at 24
+    limbs) against `Groth16(BLS12_381, "cpu")` on an 8-constraint circuit:
+    key and proof bytes are identical, and the proof verifies."""
+    gpu, cpu = Groth16(), Groth16(BLS12_381, "cpu")
+    assert gpu.pairing is BLS12_381 and gpu.device.type == "cuda"
+    p = gpu.fr.modulus
+    x = 3
+    y = (pow(x, 8, p) + x + 5) % p
+    out = []
+    for g16 in (gpu, cpu):
+        com = g16.proof_compiler()
+        pub, w = com.public_input(y), com.secret_witness(x)
+        t = w
+        for _ in range(3):
+            t = com.square(t)
+        com.assert_eq(com.add_const(com.add(t, w), 5), pub)
+        pk = g16.compile(com.cs, random.Random(33))
+        proof = g16.prove(pk, com.cs, random.Random(34))
+        out.append((pk.to_bytes(), proof.to_bytes(g16.pairing), g16.verify(pk.vk, [y], proof),
+                    g16.verify(pk.vk, [y + 1], proof)))
+    assert out[0] == out[1]
+    assert out[0][2] and not out[0][3]
+
+
+def test_ec_kernels_refuse_an_unbuilt_field(cuda):
+    """A 2-limb curve has no K3 / K4 / scan instantiation: each wrapper
+    raises a ValueError naming the curve and the limb count before any
+    launch (the coordinates are never read)."""
+    from openzl_tpu_torch.curves.spec import CurveSpec
+    from openzl_tpu_torch.fields.spec import FieldSpec
+
+    field = FieldSpec(name="toy_fp32", modulus=(1 << 31) - 1)
+    curve = CurveSpec(name="toy_g1", base=field, scalar=field, a=0, b=7, gen_x=3, gen_y=0)
+    P = jac.JPoint(*(torch.zeros((2, 4), dtype=torch.int32, device=cuda) for _ in range(3)))
+    launches = (ec_kernel.K3.launches, ec_kernel.K4.launches)
+    for call in (lambda: ec_kernel.ec_add(curve, P, P), lambda: ec_kernel.ec_dbl(curve, P),
+                 lambda: ec_kernel.lifted_scan(curve, tuple(P), torch.zeros(4, dtype=torch.bool, device=cuda))):
+        with pytest.raises(ValueError, match=f"{curve.name}.*2"):
+            call()
+    assert (ec_kernel.K3.launches, ec_kernel.K4.launches) == launches
 
 
 def _states(spec, n, seed, device):
