@@ -8,7 +8,8 @@ Phases:
 
   1. device   the card's name and power limit; fails without CUDA
   2. build    nvcc builds the kernels (K1-K9, K3s; K3, K4, K9 and K3s at
-              16 and 24 limbs) and `make -C native` the host library;
+              16 and 24 limbs; K5 and K6 at widths 2-17, K7 at 2, 3, 4, 8
+              and 12) and `make -C native` the host library;
               prints the build seconds (and each .cu file's nvcc process)
               and each kernel's registers and spill stores (`-Xptxas -v`)
   3. kernels  each kernel against its plain torch version on the card,
@@ -52,6 +53,19 @@ Phases:
               the plain hash; then one more warm build under torch.profiler,
               K5 on a single block (the latency of one state) and the device
               time of each level of two more warm builds (CUDA events)
+  6b. widths  K5 and K6 at state widths 2, 4, 5, 6, 7 (searched round
+              numbers), 9 and 17 over BN254 Fr and 5, 9 and 17 over
+              BLS12-381 Fr, K7 at 2, 4, 8 and 12 over BN254 Fr, each on
+              2^16 states against its plain version (on the first 4096 past
+              width 4), bit-exact, with its time and bound; state 3 gives
+              K5's last MDS product its largest inputs (every Montgomery
+              word p - 1), which a K5 that reduced a row once whole would
+              get wrong at BLS12-381 Fr width 17; then, launch counters
+              zeroed before and read after, throughput through
+              `Poseidon.create(spec, arity)` `permute`,
+              `permute_optimized` and `hash` and `Poseidon2.create(spec,
+              arity)` `permute` and `hash` at each of those widths; every
+              (kernel, width) must launch
   7. kzg      K8 against its plain version on one stage of 2^12 BN254 Fr
               points (batch 1 and 4), both NTT routes at 2^10 and 2^12, K9
               against its plain version on the G1 fold of a 2^16-point
@@ -79,7 +93,8 @@ Phases:
 Prints a JSON line of per-kernel results (times, launches on their path,
 and the bound: the least time the card could take for the same work; the
 rows of K3, K4, K9 and K3s also carry their BLS12-381 launches and runs,
-with each kernel's registers and spills), then,
+with each kernel's registers and spills, and the rows of K5, K6 and K7
+their phase 6b runs and launches by state width), then,
 as the last line, {"ok": true, "device": {...}}. Any failure exits non-zero
 with no result. Imports only the port (`openzl_tpu_torch`), never JAX.
 
@@ -154,9 +169,22 @@ def _ptxas_key(entry_name: str):
     return base, int(words.group(1)), 2 if "2F2I" in entry_name else 1
 
 
+def _poseidon_ptxas_key(entry_name: str):
+    """(kernel, template arguments) of a mangled entry name of the Poseidon
+    kernels, e.g. ("slot_kernel", (0, 8)) or ("permute_kernel", (2, 12,
+    8)), or None for the other kernels."""
+    import re
+
+    m = re.search(r"\d(slot_kernel|permute_kernel|poseidon_wide_kernel|poseidon_split_kernel)I((?:Li\d+E)+)E",
+                  entry_name)
+    return None if m is None else (m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2))))
+
+
 def phase_build():
     """Builds the kernels; returns {(kernel, words, ext): (registers, spill
-    store bytes)} of the EC and fold kernels (`_ptxas_key`)."""
+    store bytes)} of the EC and fold kernels (`_ptxas_key`), and the same
+    for the Poseidon kernels by (kernel, template arguments)
+    (`_poseidon_ptxas_key`)."""
     import re
 
     from openzl_tpu_torch.utils import build
@@ -188,7 +216,7 @@ def phase_build():
         spill = re.search(r"(\d+) bytes spill stores", entry)
         log(f"[build]   {name}: {regs.group(1) if regs else '?'} registers, "
             f"{spill.group(1) if spill else '?'} bytes spill stores")
-        key = _ptxas_key(name)
+        key = _ptxas_key(name) or _poseidon_ptxas_key(name)
         if key is not None and regs and spill:
             table[key] = (int(regs.group(1)), int(spill.group(1)))
     return table
@@ -761,6 +789,34 @@ def _peak(device) -> str:
     return f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB" if device.type == "cuda" else "not measured"
 
 
+def _mac_group(spec) -> int:
+    """The most products one Montgomery reduction takes summed unreduced,
+    K p < 2 R, from p's top 32-bit word (csrc/poseidon.cuh `mac_group`)."""
+    return (2**33 - 1) // ((spec.modulus >> (16 * spec.n_limbs - 32)) + 1)
+
+
+def _perm_words(name, perm) -> float:
+    """32x32-bit word products per state of kernel `name` on `perm`, the
+    least its function needs: an S-box x^5 is 2 Montgomery squares and a
+    product (`_mont_words`); a matrix row of n products is n
+    multiply-accumulates of NW^2 word products and one reduction (NW^2 +
+    NW/2) for each group of up to `_mac_group` of them. K5: a dense row of
+    W for each element of each round; K6: dense rows in the full rounds,
+    and in each partial round a row of W (w_hat) and W - 1 rows of one
+    (v_rest); Poseidon2's matrices take additions only."""
+    w, rf, rp = perm.width, perm.full_rounds, perm.partial_rounds
+    nw, group = perm.spec.n_limbs // 2, _mac_group(perm.spec)
+
+    def rows(n, products):
+        return n * (products * nw * nw + -(-products // group) * (nw * nw + nw / 2))
+
+    sboxes = rf * w + rp
+    matrices = {"poseidon_permute": rows((rf + rp) * w, w),
+                "poseidon_permute_opt": rows(rf * w, w) + rp * (rows(1, w) + rows(w - 1, 1)),
+                "poseidon2_permute": 0}[name]
+    return _mont_words(perm.spec.n_limbs, sboxes, 2 * sboxes) + matrices
+
+
 def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, log_full: int = 19,
                reps: int = 20, seed: int = 3):
     """Phase 6. Returns (kernel results, launches of the slice's kernels)."""
@@ -782,15 +838,8 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
     B = 1 << log_b
     perm, perm2 = Poseidon.create(BN254_FR, 2, device=dev), Poseidon2.create(BN254_FR, 2, device=dev)
     x = _rand_states(BN254_FR, B, rng, dev)
-    w, rf, rp = perm.width, perm.full_rounds, perm.partial_rounds
-    # (Montgomery products, squares) per state: x^5 is 2 squares and a
-    # product, a dense width-w matrix w^2 products, a sparse one 2w - 1
-    sboxes, sboxes2 = rf * w + rp, perm2.full_rounds * w + perm2.partial_rounds
-    products = {
-        "poseidon_permute": (sboxes + rf * w * w + rp * w * w, 2 * sboxes),
-        "poseidon_permute_opt": (sboxes + rf * w * w + rp * (2 * w - 1), 2 * sboxes),
-        "poseidon2_permute": (sboxes2, 2 * sboxes2),
-    }
+    per_state = {name: _perm_words(name, p) for name, p in
+                 (("poseidon_permute", perm), ("poseidon_permute_opt", perm), ("poseidon2_permute", perm2))}
     cases = (
         ("poseidon_permute", lambda: poseidon_kernel.permute(perm, x),
          lambda: poseidon_kernel.permute_plain(perm, x)),
@@ -804,10 +853,9 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
         got, exp = kern(), plain()
         ms = _time(kern, reps, dev)
         pms = _time(plain, 1, dev)
-        prod, sqr = products[name]
         _check(name, results, [got], [exp], ms, pms,
-               f"bn254_fr width 3 (B={B}, {prod} products + {sqr} squares per state)",
-               (_mont_words(16, B * prod, B * sqr), 2 * x.numel() * 4), kern)
+               f"bn254_fr width 3 (B={B}, {per_state[name]:.0f} word products per state)",
+               (B * per_state[name], 2 * x.numel() * 4), kern)
         plain_out[name] = (exp, pms)
 
     # both K5 variants at the batch sizes around a block of 128 states, a
@@ -816,7 +864,6 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
     # state alone; one plain call costs about as much at b = 1 as at 2^16,
     # so this slicing is itself held once, at b = 3)
     edge = poseidon_kernel.SPLIT_MAX_B
-    prod, sqr = products["poseidon_permute"]
     full, pms = plain_out["poseidon_permute"]
     if not torch.equal(poseidon_kernel.permute_plain(perm, x[:, :, :3].contiguous()), full[:, :, :3]):
         fail("the plain K5 of 3 states differs from the first 3 of its 2^16 output")
@@ -827,7 +874,7 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
             ms = _time(lambda: poseidon_kernel.permute(perm, xb, which), reps, dev)
             _check("poseidon_permute", results, [got], [full[:, :, :b]], ms, pms,
                    f"K5 {which} (B={b}{', the wrapper picks it' if poseidon_kernel.variant(b) == which else ''};"
-                   f" plain: the B={B} call)", (_mont_words(16, b * prod, b * sqr), 2 * xb.numel() * 4))
+                   f" plain: the B={B} call)", (b * per_state["poseidon_permute"], 2 * xb.numel() * 4))
 
     vec = json.loads((ROOT / "tests" / "vectors" / "poseidon_perm_width3_bls381.json").read_text())
     gstate = limb.tensor(limb.pack_mont(BLS12_381_FR, [[int(v)] for v in vec["input"]]), dev)
@@ -908,6 +955,190 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
         log(f"[merkle] levels sum {total:.3f} ms; the {len(thin)} levels under {narrow} states "
             f"{sum(thin):.3f} ms ({sum(thin) / total:.1%}); the other {len(levels) - len(thin)} "
             f"{total - sum(thin):.3f} ms")
+    return results, launches
+
+
+# ---------------------------------------------------------------------------
+# 6b. widths: K5, K6 and K7 at the other state widths
+# ---------------------------------------------------------------------------
+
+#: (field, kernel, widths) of phase 6b: K5 and K6 at the reference's pinned
+#: widths 2-6, 9 and 17 and a searched one (7), over BN254 Fr, and at the
+#: BLS12-381 Fr widths past the unreduced MDS row's bound (W p < 2 R holds
+#: to width 4 there; at 17 a row reduced once whole goes wrong); K7 at
+#: every other width it is built for
+WIDTHS = (
+    ("bn254_fr", ("poseidon_permute", "poseidon_permute_opt"), (2, 4, 5, 6, 7, 9, 17)),
+    ("bls12_381_fr", ("poseidon_permute", "poseidon_permute_opt"), (5, 9, 17)),
+    ("bn254_fr", ("poseidon2_permute",), (2, 4, 8, 12)),
+)
+
+
+def _uniform_states(spec, width, batch, gen, device):
+    """(n_limbs, width, batch) Montgomery states from the torch generator
+    `gen`: uniform limbs under p's top limb (so every value is below p),
+    with 0, 1 and p - 1 in every element of the first three states."""
+    import torch
+
+    from openzl_tpu_torch.fields import limb
+
+    n = spec.n_limbs
+    x = torch.randint(0, 1 << 16, (n, width, batch), generator=gen, dtype=torch.int32)
+    x[-1] = torch.randint(0, spec.modulus >> (16 * (n - 1)), (width, batch), generator=gen, dtype=torch.int32)
+    edges = limb.tensor(limb.pack_mont(spec, [0, 1, spec.modulus - 1]), "cpu")[:, None, : min(3, batch)]
+    x[:, :, : edges.shape[2]] = edges
+    return x.to(device)
+
+
+def _ptxas_runs(name, width):
+    """Phase 2's ptxas key of the instantiation that runs kernel `name` at
+    a `width` other than 3."""
+    if name == "poseidon2_permute":
+        return ("permute_kernel", (2, width, 8))
+    return ("slot_kernel", (0 if name == "poseidon_permute" else 1, 8))
+
+
+def _inverse_mod(m, p):
+    """The inverse of the square matrix m (lists of ints) over F_p."""
+    n = len(m)
+    a = [[*row, *(int(i == j) for j in range(n))] for i, row in enumerate(m)]
+    for c in range(n):
+        piv = next(r for r in range(c, n) if a[r][c])
+        a[c], a[piv] = a[piv], a[c]
+        inv = pow(a[c][c], -1, p)
+        a[c] = [v * inv % p for v in a[c]]
+        for r in range(n):
+            if r != c and a[r][c]:
+                f = a[r][c]
+                a[r] = [(v - f * u) % p for v, u in zip(a[r], a[c])]
+    return [row[n:] for row in a]
+
+
+def _directed_state(perm):
+    """The state that gives K5's last MDS product, whose rows are the
+    output, its largest inputs: after the last round's keys and S-box every
+    element's Montgomery word is p - 1 (found by running the rounds
+    backwards). Returns (its field elements, the largest row sum T that
+    product then meets, over the most a row summed whole and reduced once
+    could take). `F1c::redc` reads 2 NW words of T and subtracts p at most
+    twice, and the row's final addition once more, so such a row is exact
+    only while T < min(R^2, 3 p R); `mac_group`'s groups keep every T below
+    K p^2 < 2 p R whatever the width."""
+    from openzl_tpu_torch.fields import limb
+
+    spec, w = perm.spec, perm.width
+    p, R = spec.modulus, 1 << (16 * spec.n_limbs)
+    r_inv, root5 = pow(R, -1, p), pow(5, -1, p - 1)
+    half, rounds = perm.full_rounds // 2, perm.full_rounds + perm.partial_rounds
+    keys = [[int(k) for k in limb.unpack_mont(spec, perm.round_keys[r])] for r in range(rounds)]
+    mds = [[int(v) for v in row] for row in limb.unpack(spec, perm.mds)]
+    mds_inv = _inverse_mod([[v * r_inv % p for v in row] for row in mds], p)
+    x = [(p - 1) * r_inv % p] * w
+    for r in reversed(range(rounds)):
+        full = r < half or r >= half + perm.partial_rounds
+        x = [(pow(v, root5, p) if j == 0 or full else v) - k for j, (v, k) in enumerate(zip(x, keys[r]))]
+        if r:
+            x = [sum(m * v for m, v in zip(row, x)) % p for row in mds_inv]
+    return [v % p for v in x], (p - 1) * max(map(sum, mds)) / min(R * R, 3 * p * R)
+
+
+def phase_widths(all_kernels, device="cuda", log_b: int = 16, check_b: int = 4096, reps: int = 5,
+                 seed: int = 9, widths=WIDTHS):
+    """Phase 6b. Each (field, kernel, width) of `widths`: the kernel on
+    2^log_b states against its plain version on the first `check_b` of
+    them (all of them from width 4 down), bit-exact, with its time and
+    bound; then, with the launch counters zeroed before and read after,
+    throughput through the entry points at 2^log_b states: `permute`,
+    `permute_optimized` and `hash` of `Poseidon.create(spec, arity)`,
+    `permute` and `hash` of `Poseidon2.create(spec, arity)`. Every (kernel,
+    width) must launch. Returns (kernel results, {kernel: {width:
+    launches}})."""
+    import torch
+
+    from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
+    from openzl_tpu_torch.crypto.poseidon2 import Poseidon2
+    from openzl_tpu_torch.fields import limb
+    from openzl_tpu_torch.fields import spec as fspec
+    from openzl_tpu_torch.ops import poseidon2_kernel, poseidon_kernel
+
+    dev = torch.device(device)
+    gen = torch.Generator().manual_seed(seed)
+    B = 1 << log_b
+    kernel_fns = {
+        "poseidon_permute": (poseidon_kernel.permute, poseidon_kernel.permute_plain),
+        "poseidon_permute_opt": (poseidon_kernel.permute_optimized, poseidon_kernel.permute_optimized_plain),
+        "poseidon2_permute": (poseidon2_kernel.permute, poseidon2_kernel.poseidon2_permute_plain),
+    }
+    fields = {"bn254_fr": fspec.BN254_FR, "bls12_381_fr": fspec.BLS12_381_FR}
+    results, perms, states = {}, {}, {}
+    t0 = time.perf_counter()
+    for field, names, ws in widths:
+        spec = fields[field]
+        cls = Poseidon2 if names == ("poseidon2_permute",) else Poseidon
+        for w in ws:
+            perms[field, cls.__name__, w] = cls.create(spec, w - 1, device=dev)
+            if (field, w) not in states:
+                states[field, w] = _uniform_states(spec, w, B, gen, dev)
+            if cls is Poseidon:  # state 3: K5's largest MDS inputs
+                directed, share = _directed_state(perms[field, "Poseidon", w])
+                states[field, w][:, :, 3] = limb.tensor(limb.pack_mont(spec, directed), dev)
+                log(f"[widths] {field} width {w}: on state 3 K5's last MDS rows meet {share:.3f} of what a row "
+                    f"reduced once whole could take ({'more' if share >= 1 else 'less'} than it; "
+                    f"groups of {_mac_group(spec)})")
+    log(f"[widths] parameters of {len(perms)} instances and their states: {time.perf_counter() - t0:.1f} s (host)")
+    for field, names, ws in widths:
+        cls = "Poseidon2" if names == ("poseidon2_permute",) else "Poseidon"
+        for w in ws:
+            perm, x = perms[field, cls, w], states[field, w]
+            for name in names:
+                kern, plain = kernel_fns[name]
+                got = kern(perm, x)
+                b = B if w <= 4 else min(check_b, B)
+                xb = x[:, :, :b].contiguous()
+                exp, pms = _wall(lambda: plain(perm, xb), dev)
+                ms = _time(lambda: kern(perm, x), reps, dev)
+                per_state = _perm_words(name, perm)
+                _check(name, results, [got[:, :, :b]], [exp], ms, pms,
+                       f"{field} width {w} (R_F={perm.full_rounds}, R_P={perm.partial_rounds}, B={B}, "
+                       f"{per_state:.0f} word products per state; plain and check on the first {b})",
+                       (B * per_state, 2 * x.numel() * 4), lambda: kern(perm, x),
+                       _ptxas_runs(name, w))
+
+    # the entry points, launch counters zeroed before and read after
+    for k in all_kernels:
+        k.reset()
+    for field, names, ws in widths:
+        spec = fields[field]
+        for w in ws:
+            x = states[field, w]
+            if names == ("poseidon2_permute",):
+                perm = perms[field, "Poseidon2", w]
+                calls = (("poseidon2 permute", lambda: perm.permute(x)),)
+            else:
+                perm = perms[field, "Poseidon", w]
+                calls = (("poseidon permute", lambda: perm.permute(x)),
+                         ("poseidon permute_optimized", lambda: perm.permute_optimized(x)))
+            outs = []
+            for label, fn in calls:
+                out, wall = _wall(fn, dev)
+                ms = _time(fn, reps, dev)
+                outs.append(out)
+                log(f"[widths] {label} {field} width {w} (arity {w - 1}): {ms:.4f} ms per batch of {B}, "
+                    f"{B / ms * 1e3:.1f} perms/s (first call {wall:.3f} ms wall)")
+            digest, wall = _wall(lambda: perm.hash(x[:, 1:]), dev)
+            tagged = x.clone()
+            tagged[:, 0] = limb.tensor(perm.domain_tag_mont(), dev)[:, None]
+            if tuple(digest.shape) != (spec.n_limbs, B) or not torch.equal(digest, perm.permute(tagged)[:, 0]):
+                fail(f"{type(perm).__name__} hash at width {w} is not element 0 of its tagged permutation")
+            if len(outs) > 1 and not torch.equal(outs[0], outs[1]):
+                fail(f"permute and permute_optimized differ at {field} width {w}")
+            log(f"[widths] {type(perm).__name__.lower()} hash {field} of {B} {w - 1}-tuples: {wall:.3f} ms wall")
+    launches = {k.name: dict(sorted(k.by_state_width.items())) for k in all_kernels if k.by_state_width}
+    log(f"[widths] launches by state width through the entry points: {launches}")
+    missing = [(name, w) for _, names, ws in widths for name in names for w in ws
+               if not launches.get(name, {}).get(w)]
+    if missing:
+        fail(f"(kernel, width) pairs never launched through the entry points: {missing}")
     return results, launches
 
 
@@ -1119,6 +1350,7 @@ def main() -> None:
     missing = [k.name for k in hash_kernels if hash_launches[k.name] == 0]
     if missing:
         fail(f"kernels never launched on the hash slice: {missing}")
+    width_results, width_launches = phase_widths(kernels)
     kzg_results, kzg_launches = phase_kzg(kernels, b2_fold)
     _merge(results, kzg_results)
     launches.update({k.name: kzg_launches[k.name] for k in kzg_kernels})
@@ -1150,7 +1382,7 @@ def main() -> None:
                          ("#14 experiments/dif_probe.py kernel_A, kernel_C", (4, 512, 128))):
         moved = 2 * 4 * shape[0] * shape[1] * shape[2]
         log(f"[bound] {label} on {shape}: {moved} bytes, bound {bound((0, moved))[0]:.6f} ms (bytes)")
-    for runs in (results, bls):
+    for runs in (results, bls, width_results):
         for kname, entries in runs.items():
             for _, ms, _, work, shape, _, _ in entries:
                 b_ms, b_by = bound(work)
@@ -1191,6 +1423,12 @@ def main() -> None:
             row["bls12_381"] = {"launches": bls_launches[k.name], "kzg_launches": bls_kzg_launches[k.name],
                                 "runs": [run_row(r) for r in bls[k.name]]}
             row["bn254_ptxas"] = ptx(runs[0][6])
+        if k.name in width_results:
+            # phase 6b: each other state width's run, and the launches by
+            # state width through the entry points
+            row["max_abs_err"] = max(row["max_abs_err"], *(r[0] for r in width_results[k.name]))
+            row["widths"] = {"launches": width_launches[k.name],
+                             "runs": [run_row(r) for r in width_results[k.name]]}
         rows.append(row)
     log(smi)
     log(json.dumps({"kernels": rows}))

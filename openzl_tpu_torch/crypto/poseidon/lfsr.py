@@ -17,7 +17,12 @@ from typing import Iterable, Iterator, Tuple
 
 
 class GrainLFSR:
-    """Feedback taps 62, 51, 38, 23, 13, 0 over an 80-bit circular state.
+    """Feedback taps 62, 51, 38, 23, 13, 0 over an 80-bit state.
+
+    The state is an int whose bit i is the register's bit i (bit 0 the
+    oldest): an update appends the XOR of the tapped bits. The nearest tap
+    is 18 bits back, so 18 updates are one step of shifts and XORs of the
+    whole state; `_update` hands their bits out one at a time.
 
     The output discipline performs rejection filtering: a sampled bit is only
     emitted when the preceding update produced a 1 (pairs are consumed until
@@ -25,33 +30,32 @@ class GrainLFSR:
     """
 
     SIZE = 80
+    STEP = 18
 
     def __init__(self, seed_fields: Iterable[Tuple[int, int]]):
-        self.state = [False] * self.SIZE
-        self.head = 0
+        state, n = 0, 0
         for n_bits, value in seed_fields:
             for i in reversed(range(n_bits)):
-                self._set_next(bool((value >> i) & 1))
+                state |= ((value >> i) & 1) << n
+                n += 1
+        if n < self.SIZE:  # the register's bits before the seed are zeros
+            state <<= self.SIZE - n
+        self.state = state >> max(0, n - self.SIZE)
+        self._buf = 0
+        self._left = 0
         for _ in range(2 * self.SIZE):
             self._update()
 
-    def _set_next(self, bit: bool) -> bool:
-        self.state[self.head] = bit
-        self.head = (self.head + 1) % self.SIZE
+    def _update(self) -> int:
+        if not self._left:
+            s = self.state
+            new = (s ^ (s >> 13) ^ (s >> 23) ^ (s >> 38) ^ (s >> 51) ^ (s >> 62)) & ((1 << self.STEP) - 1)
+            self.state = (s >> self.STEP) | (new << (self.SIZE - self.STEP))
+            self._buf, self._left = new, self.STEP
+        bit = self._buf & 1
+        self._buf >>= 1
+        self._left -= 1
         return bit
-
-    def _bit(self, index: int) -> bool:
-        return self.state[(index + self.head) % self.SIZE]
-
-    def _update(self) -> bool:
-        return self._set_next(
-            self._bit(62)
-            ^ self._bit(51)
-            ^ self._bit(38)
-            ^ self._bit(23)
-            ^ self._bit(13)
-            ^ self._bit(0)
-        )
 
     def __iter__(self) -> Iterator[bool]:
         return self
@@ -61,4 +65,4 @@ class GrainLFSR:
         while not bit:
             self._update()
             bit = self._update()
-        return self._update()
+        return bool(self._update())

@@ -23,8 +23,8 @@ import torch
 
 from ...fields import limb
 from ...fields.spec import FieldSpec
+from . import constants, param_gen, preprocessing
 from . import mds as mds_mod
-from . import param_gen, preprocessing
 
 #: Wire-compatible round numbers (width -> (R_F, R_P)) of the reference's
 #: arkworks-plugin instances (plugins/arkworks/src/poseidon/mod.rs:300-322)
@@ -37,6 +37,15 @@ ROUND_NUMBERS = {
     9: (8, 57),
     17: (8, 59),
 }
+
+
+def round_numbers(width: int, modulus_bits: int) -> tuple[int, int]:
+    """(R_F, R_P) at `width`: the reference's wire-compatible table, and for
+    a width it does not pin, the security search (`constants.from_arity`)."""
+    if width in ROUND_NUMBERS:
+        return ROUND_NUMBERS[width]
+    found = constants.from_arity(width - 1, modulus_bits=modulus_bits)
+    return found.full_rounds, found.partial_rounds
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,12 +162,12 @@ class Poseidon(BatchedPermutation):
     def create(cls, spec: FieldSpec, arity: int, full_rounds: int | None = None,
                partial_rounds: int | None = None, device="cuda") -> "Poseidon":
         """The instance for `spec` and `arity`; round numbers default to the
-        reference's wire-compatible table."""
+        reference's wire-compatible table, and for a width it does not pin,
+        to the security search (`constants.from_arity` at the field's bit
+        length)."""
         width = arity + 1
         if full_rounds is None or partial_rounds is None:
-            if width not in ROUND_NUMBERS:
-                raise ValueError(f"no pinned round numbers for width {width}; pass them")
-            full_rounds, partial_rounds = ROUND_NUMBERS[width]
+            full_rounds, partial_rounds = round_numbers(width, spec.bits)
         spec = FieldSpec(spec.name, spec.modulus)
         arrays = _host_params(spec, width, full_rounds, partial_rounds)
         return cls(spec, width, full_rounds, partial_rounds, **arrays, device=torch.device(device))

@@ -136,22 +136,38 @@ def _poly_mulmod(p: int, a: List[int], b: List[int], f: List[int]) -> List[int]:
     return out[:t]
 
 
-def _xp_pow(p: int, f: List[int], reps: int) -> List[int]:
-    """x^(p^reps) mod f via repeated Frobenius (square-and-multiply on the
-    binary expansion of p, reps times)."""
+def _xp_pow(p: int, f: List[int]) -> List[int]:
+    """x^p mod f by square-and-multiply on the binary expansion of p."""
     t = len(f) - 1
-    cur = [0, 1] + [0] * (t - 2) if t >= 2 else [0]
-    for _ in range(reps):
-        base = cur
-        acc = [1] + [0] * (t - 1)
-        e = p
-        while e:
-            if e & 1:
-                acc = _poly_mulmod(p, acc, base, f)
-            base = _poly_mulmod(p, base, base, f)
-            e >>= 1
-        cur = acc
-    return cur
+    base = [0, 1] + [0] * (t - 2)
+    acc = [1] + [0] * (t - 1)
+    e = p
+    while e:
+        if e & 1:
+            acc = _poly_mulmod(p, acc, base, f)
+        base = _poly_mulmod(p, base, base, f)
+        e >>= 1
+    return acc
+
+
+def _frobenius_powers(p: int, f: List[int]) -> List[List[int]]:
+    """[x^(p^k) mod f for k = 0 .. t]. g -> g^p mod f is linear over F_p
+    (g^p = sum g_i x^(i p), as g_i^p = g_i), so after one exponentiation,
+    x^p, each further power is the product of g with the matrix of rows
+    x^(i p) mod f, i < t: t^2 products where the reference's `_xp_pow`
+    exponentiates by p again. The powers, reduced mod f, are the same."""
+    t = len(f) - 1
+    rows = [[1] + [0] * (t - 1), _xp_pow(p, f)]
+    while len(rows) < t:
+        rows.append(_poly_mulmod(p, rows[-1], rows[1], f))
+    powers = [[0, 1] + [0] * (t - 2)]
+    for _ in range(t):
+        out = [0] * t
+        for gi, row in zip(powers[-1], rows):
+            if gi:
+                out = [o + gi * r for o, r in zip(out, row)]
+        powers.append([o % p for o in out])
+    return powers
 
 
 def _poly_gcd_deg(p: int, a: List[int], b: List[int]) -> int:
@@ -184,15 +200,14 @@ def _is_irreducible(p: int, f: List[int]) -> bool:
     t = len(f) - 1
     if t == 1:
         return True
-    x = [0, 1] + [0] * (t - 2)
-    xq = _xp_pow(p, f, t)
-    diff = [(a - b) % p for a, b in zip(xq, x)]
+    powers = _frobenius_powers(p, f)
+    x = powers[0]
+    diff = [(a - b) % p for a, b in zip(powers[t], x)]
     if any(diff):
         return False
     primes = {q for q in range(2, t + 1) if t % q == 0 and all(q % r for r in range(2, q))}
     for q in primes:
-        xq = _xp_pow(p, f, t // q)
-        diff = [(a - b) % p for a, b in zip(xq, x)]
+        diff = [(a - b) % p for a, b in zip(powers[t // q], x)]
         diff = diff + [0]  # degree < t; gcd with f
         if _poly_gcd_deg(p, f, diff) > 0:
             return False

@@ -1,8 +1,12 @@
 // The round functions of the Poseidon kernels (poseidon_kernel.cu, K5 and
-// K6; poseidon2_kernel.cu, K7) on one state held in registers (K5 also on
-// a group of four lanes), and what they share: the state layout at the
-// kernel boundary, the constant buffer layout and the S-box. Compiles as host C++ too (field.cuh's OZL_HD), so
-// the rounds can be run on the host against the plain torch versions.
+// K6; poseidon2_kernel.cu, K7) and what they share: the state layout at the
+// kernel boundary, the constant buffer layout and the S-box. K5's and K6's
+// rounds are written once over a state accessor: `Regs`, the state in
+// registers at a compile-time width (width 3), or `Slot`, the state in a
+// thread's slot of shared memory at a run-time width (every other width);
+// K5 also runs on a group of four lanes at width 3. Compiles as host C++
+// too (field.cuh's OZL_HD), so the rounds can be run on the host against
+// the plain torch versions.
 #pragma once
 #include <stddef.h>
 
@@ -40,26 +44,88 @@ OZL_HD Fp<NW> pow5(const Fd& F, const Fp<NW>& x) {
   return F.mul(x4, x);
 }
 
-// out_o = sum_k M(o, k) x_k with M(o, k) at m[(o * so + k * sk) * NW]:
-// (so, sk) = (W, 1) is the product M x, (1, W) the row vector at left x M
+// A thread's state of W elements, read and written one element at a time
+// by the round functions below. Regs: in registers, W fixed at compile
+// time, every loop over the elements unrolled (kUnroll = W). Slot: in
+// shared memory, W a run-time argument, the loops rolled (kUnroll = 1), so
+// one instantiation serves every width; word w of element j lies at
+// base[(j NW + w) stride] (stride = the block's threads, so a warp's
+// accesses fall in distinct banks). A state of W NW words fills the
+// registers from width 5 or so, and with the W results of an MDS product
+// it overflows them: the other widths keep it in a slot, and each round
+// writes its product one element at a time into a second slot.
 template <int W, int NW>
-OZL_HD void mat_apply(const F1<NW>& F, Fp<NW> (&x)[W], const uint32_t* m, int so, int sk) {
-  Fp<NW> y[W];
+struct Regs {
+  static constexpr int kUnroll = W;
+  Fp<NW> v[W];
+
+  OZL_HD int width() const { return W; }
+  OZL_HD Fp<NW> get(int j) const { return v[j]; }
+  OZL_HD void set(int j, const Fp<NW>& a) { v[j] = a; }
+};
+
+template <int NW>
+struct Slot {
+  static constexpr int kUnroll = 1;
+  uint32_t* base;
+  int stride;
+  int w;
+
+  OZL_HD int width() const { return w; }
+
+  OZL_HD Fp<NW> get(int j) const {
+    Fp<NW> r;
 #pragma unroll
-  for (int o = 0; o < W; ++o) {
-    y[o] = F.mul(x[0], word_fp<NW>(m + (size_t)(o * so) * NW));
-#pragma unroll
-    for (int k = 1; k < W; ++k) y[o] = F.add(y[o], F.mul(x[k], word_fp<NW>(m + (size_t)(o * so + k * sk) * NW)));
+    for (int k = 0; k < NW; ++k) r.w[k] = base[(j * NW + k) * stride];
+    return r;
   }
+
+  OZL_HD void set(int j, const Fp<NW>& v) const {
 #pragma unroll
-  for (int o = 0; o < W; ++o) x[o] = y[o];
+    for (int k = 0; k < NW; ++k) base[(j * NW + k) * stride] = v.w[k];
+  }
+};
+
+// acc (2 NW + 1 words) += a b, the sum known to fit: row i adds a b_i at
+// word i and carries up to the top word
+template <int NW>
+OZL_HD void mac_acc(uint32_t* acc, const Fp<NW>& a, const Fp<NW>& b) {
+  Carry cc;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint32_t* t = acc + i;
+    const int top = 2 * NW - i;
+    const uint32_t bi = b.w[i];
+    t[0] = mad_lo_cc(a.w[0], bi, t[0], cc);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) t[j] = madc_lo_cc(a.w[j], bi, t[j], cc);
+#pragma unroll
+    for (int j = NW; j < top; ++j) t[j] = addc_cc(t[j], 0, cc);
+    t[top] = addc(t[top], 0, cc);
+    t[1] = mad_hi_cc(a.w[0], bi, t[1], cc);
+#pragma unroll
+    for (int j = 1; j < NW; ++j) t[j + 1] = madc_hi_cc(a.w[j], bi, t[j + 1], cc);
+#pragma unroll
+    for (int j = NW + 1; j < top; ++j) t[j] = addc_cc(t[j], 0, cc);
+    t[top] = addc(t[top], 0, cc);
+  }
 }
 
-// K5's MDS product M x: output o is sum_k M(o, k) x_k, W products summed
-// unreduced (F1c::mac_sum) and reduced once; needs W p < 2 R (W = 3:
-// BN254 Fr and BLS12-381 Fr)
+// The most products F1c::redc can take summed unreduced: K p < 2 R. From
+// p's top word alone, p < (top + 1) 2^(32 NW - 32), so K = floor((2^33 -
+// 1) / (top + 1)) keeps K p < 2^(32 NW + 1) (10 for BN254 Fr, 4 for
+// BLS12-381 Fr).
+OZL_HD int mac_group(uint32_t p_top) { return (int)(0x1FFFFFFFFull / ((uint64_t)p_top + 1)); }
+
+// K5's MDS row: sum_k M(o, k) x_k for the row at `row`. On registers
+// (and the split lanes' exchanged state) all W products are summed
+// unreduced (F1c::mac_sum, whose carries stop early) and reduced once,
+// which needs W p < 2 R: W <= 4 for both fields. On a slot the row is
+// summed in groups of at most `group` products (mac_group), each
+// unreduced (mac_acc) and reduced once, and the reduced parts added.
 template <int W, int NW>
 OZL_HD Fp<NW> mds_row(const F1c<NW>& F, const Fp<NW> (&x)[W], const uint32_t* row) {
+  static_assert(W <= 4, "W p < 2 R");
   Fp<NW> m[W];
 #pragma unroll
   for (int k = 0; k < W; ++k) m[k] = word_fp<NW>(row + k * NW);
@@ -68,31 +134,56 @@ OZL_HD Fp<NW> mds_row(const F1c<NW>& F, const Fp<NW> (&x)[W], const uint32_t* ro
   return F.redc(acc);
 }
 
-// K5 rounds on one state over the constant buffer [round keys (rounds, W,
-// NW); MDS (W, W, NW)]: add keys, S-box (every element in full rounds,
-// element 0 in partial rounds), M x
 template <int W, int NW>
-OZL_HD void poseidon_rounds(const F1c<NW>& F, Fp<NW> (&x)[W], const uint32_t* c, int full_rounds,
-                            int partial_rounds) {
+OZL_HD Fp<NW> mds_row(const F1c<NW>& F, const Regs<W, NW>& x, const uint32_t* row, int) {
+  return mds_row<W, NW>(F, x.v, row);
+}
+
+template <int NW>
+OZL_HD Fp<NW> mds_row(const F1c<NW>& F, const Slot<NW>& x, const uint32_t* row, int group) {
+  const int W = x.width();
+  Fp<NW> out = F1<NW>::zero();
+#pragma unroll 1
+  for (int k0 = 0; k0 < W; k0 += group) {
+    uint32_t acc[2 * NW + 1];
+#pragma unroll
+    for (int j = 0; j <= 2 * NW; ++j) acc[j] = 0;
+    const int k1 = k0 + group < W ? k0 + group : W;
+#pragma unroll 1
+    for (int k = k0; k < k1; ++k) mac_acc<NW>(acc, x.get(k), word_fp<NW>(row + k * NW));
+    out = F.add(out, F.redc(acc));
+  }
+  return out;
+}
+
+// K5 rounds on state x (S = Regs or Slot), with y for the MDS product,
+// over the constant buffer [round keys (rounds, W, NW); MDS (W, W, NW)]:
+// add keys, S-box (every element in full rounds, element 0 in partial
+// rounds), M x. Returns the state that holds the result.
+template <class S, int NW>
+OZL_HD S poseidon_rounds(const F1c<NW>& F, S x, S y, int group, const uint32_t* c, int full_rounds,
+                         int partial_rounds) {
+  const int W = x.width();
   const int rounds = full_rounds + partial_rounds;
   const int half = full_rounds / 2;
   const uint32_t* mds = c + (size_t)rounds * W * NW;
 #pragma unroll 1
   for (int r = 0; r < rounds; ++r) {
     const uint32_t* kr = c + (size_t)r * W * NW;
-#pragma unroll
-    for (int j = 0; j < W; ++j) x[j] = F.add(x[j], word_fp<NW>(kr + j * NW));
-    x[0] = pow5(F, x[0]);
-    if (r < half || r >= half + partial_rounds) {
-#pragma unroll
-      for (int j = 1; j < W; ++j) x[j] = pow5(F, x[j]);
+    const bool full = r < half || r >= half + partial_rounds;
+#pragma unroll (S::kUnroll)
+    for (int j = 0; j < W; ++j) {
+      Fp<NW> v = F.add(x.get(j), word_fp<NW>(kr + j * NW));
+      if (j == 0 || full) v = pow5(F, v);
+      x.set(j, v);
     }
-    Fp<NW> y[W];
-#pragma unroll
-    for (int o = 0; o < W; ++o) y[o] = mds_row<W, NW>(F, x, mds + (size_t)o * W * NW);
-#pragma unroll
-    for (int o = 0; o < W; ++o) x[o] = y[o];
+#pragma unroll (S::kUnroll)
+    for (int o = 0; o < W; ++o) y.set(o, mds_row(F, x, mds + (size_t)o * W * NW, group));
+    const S t = x;
+    x = y;
+    y = t;
   }
+  return x;
 }
 
 // x[o] for a lane-dependent o, by selects (no local-memory indexing)
@@ -165,21 +256,37 @@ OZL_HD void poseidon_split_lane(const F1c<NW>& F, G& g, int lane, Fp<NW> (&x)[3]
   }
 }
 
-template <int W>
-OZL_HD int poseidon_words(int full_rounds, int partial_rounds, int NW) {
+OZL_HD int poseidon_words(int W, int full_rounds, int partial_rounds, int NW) {
   return ((full_rounds + partial_rounds) * W + W * W) * NW;
 }
 
-// K6 rounds over [initial (W, NW); full keys (R_F - 1, W, NW); partial keys
-// (R_P, NW); pre_sparse (W, W, NW); MDS (W, W, NW); w_hat (R_P, W, NW);
-// v_rest (R_P, W - 1, NW)]. Full round r: S-box, post-S-box keys (none in
-// the last round), M x; the boundary round half - 1 applies pre_sparse as a
+// y_o = sum_k M(o, k) x_k over F1 with M(o, k) at m[(o so + k sk) NW],
+// for every o: (so, sk) = (W, 1) is the product M x, (1, W) the row vector
+// at left x M
+template <class S, int NW>
+OZL_HD void mat_apply(const F1<NW>& F, const S& x, S& y, const uint32_t* m, int so, int sk) {
+  const int W = x.width();
+#pragma unroll (S::kUnroll)
+  for (int o = 0; o < W; ++o) {
+    Fp<NW> acc = F.mul(x.get(0), word_fp<NW>(m + (size_t)(o * so) * NW));
+#pragma unroll (S::kUnroll)
+    for (int k = 1; k < W; ++k) acc = F.add(acc, F.mul(x.get(k), word_fp<NW>(m + (size_t)(o * so + k * sk) * NW)));
+    y.set(o, acc);
+  }
+}
+
+// K6 rounds on state x (S = Regs or Slot), with y for the dense products,
+// over [initial (W, NW); full keys (R_F - 1, W, NW); partial keys (R_P,
+// NW); pre_sparse (W, W, NW); MDS (W, W, NW); w_hat (R_P, W, NW); v_rest
+// (R_P, W - 1, NW)]. Full round r: S-box, post-S-box keys (none in the
+// last round), M x; the boundary round half - 1 applies pre_sparse as a
 // row vector at left (x M, it is not symmetric) and is followed by every
 // partial round: x_0 = x_0^5 + key, then out_0 = sum_i x_i w_hat_i and
-// out_j = x_j + x_0 v_rest_j.
-template <int W, int NW>
-OZL_HD void poseidon_opt_rounds(const F1<NW>& F, Fp<NW> (&x)[W], const uint32_t* c,
-                                int full_rounds, int partial_rounds) {
+// out_j = x_j + x_0 v_rest_j. Returns the state that holds the result.
+template <class S, int NW>
+OZL_HD S poseidon_opt_rounds(const F1<NW>& F, S x, S y, const uint32_t* c, int full_rounds,
+                             int partial_rounds) {
+  const int W = x.width();
   const int half = full_rounds / 2;
   const uint32_t* init = c;
   const uint32_t* fkeys = init + W * NW;
@@ -188,35 +295,39 @@ OZL_HD void poseidon_opt_rounds(const F1<NW>& F, Fp<NW> (&x)[W], const uint32_t*
   const uint32_t* mds = pre + W * W * NW;
   const uint32_t* w_hat = mds + W * W * NW;
   const uint32_t* v_rest = w_hat + (size_t)partial_rounds * W * NW;
-#pragma unroll
-  for (int j = 0; j < W; ++j) x[j] = F.add(x[j], word_fp<NW>(init + j * NW));
+#pragma unroll (S::kUnroll)
+  for (int j = 0; j < W; ++j) x.set(j, F.add(x.get(j), word_fp<NW>(init + j * NW)));
 #pragma unroll 1
   for (int r = 0; r < full_rounds; ++r) {
-#pragma unroll
+#pragma unroll (S::kUnroll)
     for (int j = 0; j < W; ++j) {
-      x[j] = pow5(F, x[j]);
-      if (r < full_rounds - 1) x[j] = F.add(x[j], word_fp<NW>(fkeys + ((size_t)r * W + j) * NW));
+      Fp<NW> v = pow5(F, x.get(j));
+      if (r < full_rounds - 1) v = F.add(v, word_fp<NW>(fkeys + ((size_t)r * W + j) * NW));
+      x.set(j, v);
     }
     const bool boundary = r == half - 1;
-    mat_apply<W, NW>(F, x, boundary ? pre : mds, boundary ? 1 : W, boundary ? W : 1);
+    mat_apply<S, NW>(F, x, y, boundary ? pre : mds, boundary ? 1 : W, boundary ? W : 1);
+    const S t = x;
+    x = y;
+    y = t;
     if (!boundary) continue;
 #pragma unroll 1
     for (int q = 0; q < partial_rounds; ++q) {
       const uint32_t* wh = w_hat + (size_t)q * W * NW;
       const uint32_t* vr = v_rest + (size_t)q * (W - 1) * NW;
-      const Fp<NW> x0 = F.add(pow5(F, x[0]), word_fp<NW>(pkeys + (size_t)q * NW));
+      const Fp<NW> x0 = F.add(pow5(F, x.get(0)), word_fp<NW>(pkeys + (size_t)q * NW));
       Fp<NW> out0 = F.mul(x0, word_fp<NW>(wh));
-#pragma unroll
-      for (int i = 1; i < W; ++i) out0 = F.add(out0, F.mul(x[i], word_fp<NW>(wh + i * NW)));
-#pragma unroll
-      for (int j = 1; j < W; ++j) x[j] = F.add(x[j], F.mul(x0, word_fp<NW>(vr + (j - 1) * NW)));
-      x[0] = out0;
+#pragma unroll (S::kUnroll)
+      for (int i = 1; i < W; ++i) out0 = F.add(out0, F.mul(x.get(i), word_fp<NW>(wh + i * NW)));
+#pragma unroll (S::kUnroll)
+      for (int j = 1; j < W; ++j) x.set(j, F.add(x.get(j), F.mul(x0, word_fp<NW>(vr + (j - 1) * NW))));
+      x.set(0, out0);
     }
   }
+  return x;
 }
 
-template <int W>
-OZL_HD int poseidon_opt_words(int full_rounds, int partial_rounds, int NW) {
+OZL_HD int poseidon_opt_words(int W, int full_rounds, int partial_rounds, int NW) {
   return (W + (full_rounds - 1) * W + partial_rounds + 2 * W * W + partial_rounds * W +
           partial_rounds * (W - 1)) * NW;
 }
@@ -234,15 +345,45 @@ OZL_HD Fp<NW> small_mul(const F1<NW>& F, const Fp<NW>& x, uint32_t c) {
   return acc;
 }
 
-// Poseidon2 external layer at width 2 or 3, circ(2, 1[, 1]): x_i + sum x
+// M4 = [[5, 7, 1, 3], [4, 6, 1, 1], [1, 3, 5, 7], [1, 1, 4, 6]] on x[0 .. 3]
+// in place, by eight additions and four doublings (Poseidon2 paper,
+// appendix B)
+template <int NW>
+OZL_HD void m4_apply(const F1<NW>& F, Fp<NW>* x) {
+  const Fp<NW> t0 = F.add(x[0], x[1]), t1 = F.add(x[2], x[3]);
+  const Fp<NW> t2 = F.add(F.dbl(x[1]), t1), t3 = F.add(F.dbl(x[3]), t0);
+  const Fp<NW> t4 = F.add(F.dbl(F.dbl(t1)), t3), t5 = F.add(F.dbl(F.dbl(t0)), t2);
+  x[0] = F.add(t3, t5);
+  x[1] = t5;
+  x[2] = F.add(t2, t4);
+  x[3] = t4;
+}
+
+// Poseidon2 external layer M_E: at width 2 or 3 circ(2, 1[, 1]), x_i +
+// sum x; at width 4k, 2 M4 blocks on the diagonal and M4 off it, which is
+// M4 on each block of four plus, at each of the four positions, the sum
+// of the blocks' results there
 template <int W, int NW>
 OZL_HD void ext_layer(const F1<NW>& F, Fp<NW> (&x)[W]) {
-  static_assert(W == 2 || W == 3, "the external layer x_i + sum x is for width 2 or 3");
-  Fp<NW> s = x[0];
+  static_assert(W == 2 || W == 3 || W % 4 == 0, "Poseidon2 takes width 2, 3 or 4k");
+  if constexpr (W % 4 == 0) {
 #pragma unroll
-  for (int i = 1; i < W; ++i) s = F.add(s, x[i]);
+    for (int b = 0; b < W; b += 4) m4_apply<NW>(F, x + b);
 #pragma unroll
-  for (int i = 0; i < W; ++i) x[i] = F.add(x[i], s);
+    for (int i = 0; i < 4; ++i) {
+      Fp<NW> s = x[i];
+#pragma unroll
+      for (int b = 4; b < W; b += 4) s = F.add(s, x[b + i]);
+#pragma unroll
+      for (int b = 0; b < W; b += 4) x[b + i] = F.add(x[b + i], s);
+    }
+  } else {
+    Fp<NW> s = x[0];
+#pragma unroll
+    for (int i = 1; i < W; ++i) s = F.add(s, x[i]);
+#pragma unroll
+    for (int i = 0; i < W; ++i) x[i] = F.add(x[i], s);
+  }
 }
 
 // K7 rounds over [ext keys (R_F, W, NW); int keys (R_P, NW); diag (W,)]:
@@ -277,19 +418,23 @@ OZL_HD void poseidon2_rounds(const F1<NW>& F, Fp<NW> (&x)[W], const uint32_t* c,
   }
 }
 
-template <int W>
-OZL_HD int poseidon2_words(int full_rounds, int partial_rounds, int NW) {
+OZL_HD int poseidon2_words(int W, int full_rounds, int partial_rounds, int NW) {
   return (full_rounds * W + partial_rounds) * NW + W;
 }
 
-// K6 and K7 run through permute_kernel; K5 has its own (poseidon_kernel.cu)
-enum PermKind { kPoseidonOpt = 1, kPoseidon2 = 2 };
+// K6 and K7 run through permute_kernel at width 3 (K7 also at 2, 4, 8 and
+// 12); K5 has its own (poseidon_kernel.cu). K5 and K6 at the other widths
+// run through slot_kernel.
+enum PermKind { kPoseidon = 0, kPoseidonOpt = 1, kPoseidon2 = 2 };
 
 template <int KIND, int W, int NW>
-OZL_HD void run_rounds(const F1<NW>& F, Fp<NW> (&x)[W], const uint32_t* c, int full_rounds,
+OZL_HD void run_rounds(const F1<NW>& F, Regs<W, NW>& x, const uint32_t* c, int full_rounds,
                        int partial_rounds) {
-  if constexpr (KIND == kPoseidonOpt) poseidon_opt_rounds<W, NW>(F, x, c, full_rounds, partial_rounds);
-  if constexpr (KIND == kPoseidon2) poseidon2_rounds<W, NW>(F, x, c, full_rounds, partial_rounds);
+  if constexpr (KIND == kPoseidonOpt) {
+    Regs<W, NW> y{};
+    x = poseidon_opt_rounds<Regs<W, NW>, NW>(F, x, y, c, full_rounds, partial_rounds);
+  }
+  if constexpr (KIND == kPoseidon2) poseidon2_rounds<W, NW>(F, x.v, c, full_rounds, partial_rounds);
 }
 
 #ifdef __CUDACC__
@@ -305,10 +450,10 @@ __global__ void permute_kernel(int32_t* out, const int32_t* in, const int32_t* c
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const F1<NW> F{f};
-  Fp<NW> x[W];
-  load_state<W, NW>(x, in, B, b);
+  Regs<W, NW> x;
+  load_state<W, NW>(x.v, in, B, b);
   run_rounds<KIND, W, NW>(F, x, sm, full_rounds, partial_rounds);
-  store_state<W, NW>(out, B, b, x);
+  store_state<W, NW>(out, B, b, x.v);
 }
 
 // Launch on `st` with 128 threads a block and the constants in shared
@@ -329,6 +474,64 @@ int launch_permute(void* out, const void* in, const void* consts, int64_t B, int
     permute_kernel<KIND, W, NW><<<(unsigned)blocks, threads, smem, st>>>(
         (int32_t*)out, (const int32_t*)in, (const int32_t*)consts, B, full_rounds, partial_rounds,
         n_words, make_params<NW>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+// K5 (kPoseidon, over F1c, MDS rows in groups of `group` products) or K6
+// (kPoseidonOpt, over F1) at a run-time width W, one thread per state:
+// dynamic shared memory holds the constants, then the threads' x slots,
+// then their y slots (W NW words each)
+template <int KIND, int NW>
+__global__ void __launch_bounds__(128)
+    slot_kernel(int32_t* out, const int32_t* in, const int32_t* consts, int64_t B, int W, int group,
+                int full_rounds, int partial_rounds, int n_words, FieldParams<NW> f) {
+  extern __shared__ uint32_t sm[];
+  for (int e = threadIdx.x; e < n_words; e += blockDim.x) sm[e] = (uint32_t)consts[e];
+  __syncthreads();
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int T = blockDim.x;
+  Slot<NW> x{sm + n_words + threadIdx.x, T, W};
+  const Slot<NW> y{sm + n_words + W * NW * T + threadIdx.x, T, W};
+#pragma unroll 1
+  for (int j = 0; j < W; ++j) x.set(j, load_fp<NW>(in + (int64_t)j * B, (int64_t)W * B, b));
+  if constexpr (KIND == kPoseidon) {
+    F1c<NW> F;
+    F.f = f;
+    x = poseidon_rounds<Slot<NW>, NW>(F, x, y, group, sm, full_rounds, partial_rounds);
+  } else {
+    const F1<NW> F{f};
+    x = poseidon_opt_rounds<Slot<NW>, NW>(F, x, y, sm, full_rounds, partial_rounds);
+  }
+#pragma unroll 1
+  for (int j = 0; j < W; ++j) store_fp<NW>(out + (int64_t)j * B, (int64_t)W * B, b, x.get(j));
+}
+
+// The shared memory a block can have on Hopper (227 KB)
+constexpr size_t kMaxBlockSmem = 232448;
+
+// Launch slot_kernel on `st` with the largest block of 128, 64 or 32
+// threads whose constants and state slots fit kMaxBlockSmem; returns
+// cudaGetLastError(), or cudaErrorInvalidValue if 32 threads do not fit.
+template <int KIND, int NW>
+int launch_slot(void* out, const void* in, const void* consts, int64_t B, int W, int group,
+                int full_rounds, int partial_rounds, int n_words, const uint32_t* p, uint32_t n0,
+                cudaStream_t st) {
+  int threads = 128;
+  auto smem = [&](int t) { return sizeof(uint32_t) * ((size_t)n_words + (size_t)2 * W * NW * t); };
+  while (threads > 32 && smem(threads) > kMaxBlockSmem) threads /= 2;
+  const size_t bytes = smem(threads);
+  if (bytes > kMaxBlockSmem) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(slot_kernel<KIND, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int64_t blocks = (B + threads - 1) / threads;
+  if (blocks > 0)
+    slot_kernel<KIND, NW><<<(unsigned)blocks, threads, bytes, st>>>(
+        (int32_t*)out, (const int32_t*)in, (const int32_t*)consts, B, W, group, full_rounds,
+        partial_rounds, n_words, make_params<NW>(p, n0));
   return (int)cudaGetLastError();
 }
 #endif

@@ -10,22 +10,45 @@
 // diag_i, taken by doublings and additions. Results are fully reduced, so
 // any correct product is bit-equal to the reference's.
 //
-// Design as K5 (poseidon_kernel.cu): one thread per state held in
-// registers, the keys (1.9 KB at width 3) and the diagonal staged in shared
-// memory, the rounds a runtime loop with one round body. Bound on the card:
-// integer multiplies, 240 Montgomery products of 136 word products per
-// state against 192 B of state traffic each way.
+// Design as K5 at width 3 (poseidon_kernel.cu): one thread per state held
+// in registers, the keys (1.9 KB at width 3) and the diagonal staged in
+// shared memory, the rounds a runtime loop with one round body. Bound on
+// the card: integer multiplies, 240 Montgomery products of 136 word
+// products per state against 192 B of state traffic each way.
+//
+// Built at every width Poseidon2 has round numbers for (ROUND_NUMBERS_128
+// of crypto/poseidon2: 2, 3, 4, 8 and 12), one instantiation each. At
+// width 4k the external layer is M4 on each block of four plus the sum of
+// the blocks (ext_layer); no layer needs a temporary state, so even width
+// 12 (96 words of state) stays in registers.
 #include <cuda_runtime.h>
 
 #include "poseidon.cuh"
 
-// Instantiated for width 3 over 16-limb (8-word) fields; anything else is
-// refused with cudaErrorInvalidValue (the wrapper checks first).
+namespace {
+
+template <int W>
+int launch_width(void* out, const void* in, const void* consts, int64_t B, int full_rounds,
+                 int partial_rounds, const void* p, uint32_t n0, void* stream) {
+  return launch_permute<kPoseidon2, W, 8>(out, in, consts, B, full_rounds, partial_rounds,
+                                          poseidon2_words(W, full_rounds, partial_rounds, 8),
+                                          (const uint32_t*)p, n0, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// Instantiated over 16-limb (8-word) fields; any other width or limb count
+// is refused with cudaErrorInvalidValue (the wrapper checks first).
 extern "C" int ozl_poseidon2_permute(void* out, const void* in, const void* consts, int64_t B,
                                      int width, int full_rounds, int partial_rounds, int n_limbs,
                                      const void* p, uint32_t n0, void* stream) {
-  if (width != 3 || n_limbs != 16) return (int)cudaErrorInvalidValue;
-  return launch_permute<kPoseidon2, 3, 8>(out, in, consts, B, full_rounds, partial_rounds,
-                                          poseidon2_words<3>(full_rounds, partial_rounds, 8),
-                                          (const uint32_t*)p, n0, (cudaStream_t)stream);
+  if (n_limbs != 16) return (int)cudaErrorInvalidValue;
+  switch (width) {
+    case 2: return launch_width<2>(out, in, consts, B, full_rounds, partial_rounds, p, n0, stream);
+    case 3: return launch_width<3>(out, in, consts, B, full_rounds, partial_rounds, p, n0, stream);
+    case 4: return launch_width<4>(out, in, consts, B, full_rounds, partial_rounds, p, n0, stream);
+    case 8: return launch_width<8>(out, in, consts, B, full_rounds, partial_rounds, p, n0, stream);
+    case 12: return launch_width<12>(out, in, consts, B, full_rounds, partial_rounds, p, n0, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

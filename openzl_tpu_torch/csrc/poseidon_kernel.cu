@@ -28,6 +28,19 @@
 // The constants (6.2 KB for K5, 11.6 KB for K6 at width 3) are staged in
 // shared memory by each block and read as broadcasts. K6 keeps its first
 // design: one thread per state over F1 (permute_kernel in poseidon.cuh).
+//
+// Every other width, 2 and 4 to 17 (arity 1 to 16, the reference's pinned
+// widths 2-6, 9 and 17 and the searched ones between), runs one kernel
+// whose width is a run-time argument (slot_kernel in poseidon.cuh), for K5
+// and for K6, through the same round functions as width 3 (on a `Slot`
+// instead of `Regs`): a thread keeps its state in its slot of shared memory beside
+// the constants (45.7 KB for K5 and 87.0 KB for K6 at width 17) and writes
+// each round's MDS product, one element at a time, into a second slot; the
+// block shrinks from 128 threads where the two exceed 227 KB. Its K5 sums
+// an MDS row unreduced in groups of at most K products with K p < 2 R (10
+// for BN254 Fr, 4 for BLS12-381 Fr: mac_group), one reduction a group, so
+// BLS12-381 Fr rows past width 4 stay exact. No split variant: the Merkle
+// tree, the one caller with narrow batches, hashes at width 3.
 #include <cuda_runtime.h>
 
 #include "poseidon.cuh"
@@ -51,10 +64,10 @@ __global__ void __launch_bounds__(kThreads)
   if (b >= B) return;
   F1c<NW> F;
   F.f = f;
-  Fp<NW> x[W];
-  load_state<W, NW>(x, in, B, b);
-  poseidon_rounds<W, NW>(F, x, sm, full_rounds, partial_rounds);
-  store_state<W, NW>(out, B, b, x);
+  Regs<W, NW> x, y{};
+  load_state<W, NW>(x.v, in, B, b);
+  x = poseidon_rounds<Regs<W, NW>, NW>(F, x, y, W, sm, full_rounds, partial_rounds);
+  store_state<W, NW>(out, B, b, x.v);
 }
 
 // the lane exchange of poseidon_split_lane: groups of kSplit lanes
@@ -91,7 +104,7 @@ template <int W, int NW>
 int launch_poseidon(void* out, const void* in, const void* consts, int64_t B, int split,
                     int full_rounds, int partial_rounds, const uint32_t* p, uint32_t n0,
                     cudaStream_t st) {
-  const int n_words = poseidon_words<W>(full_rounds, partial_rounds, NW);
+  const int n_words = poseidon_words(W, full_rounds, partial_rounds, NW);
   const size_t smem = sizeof(uint32_t) * (size_t)n_words;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int64_t threads = split ? B * kSplit : B;
@@ -112,24 +125,35 @@ int launch_poseidon(void* out, const void* in, const void* consts, int64_t B, in
 
 }  // namespace
 
-// K5 is instantiated for width 3 over 16-limb (8-word) fields whose top
-// word is below 0x7FFFFFFF (F1c); anything else is refused with
-// cudaErrorInvalidValue (the wrapper checks first). `split` picks the
-// four-lanes-per-state variant.
+// Built for 16-limb (8-word) fields: K5 and K6 at widths 2 to
+// kMaxWidth, width 3 through its own instantiations, K5 only where the top
+// word of p is below 0x7FFFFFFF (F1c). Anything else is refused with
+// cudaErrorInvalidValue (the wrapper checks first). `split` picks K5's
+// four-lanes-per-state variant, built for width 3 only.
+constexpr int kMaxWidth = 17;
+
 extern "C" int ozl_poseidon_permute(void* out, const void* in, const void* consts, int64_t B,
                                     int split, int width, int full_rounds, int partial_rounds,
                                     int n_limbs, const void* p, uint32_t n0, void* stream) {
   const uint32_t* pw = (const uint32_t*)p;
-  if (width != 3 || n_limbs != 16 || pw[7] >= 0x7FFFFFFFu) return (int)cudaErrorInvalidValue;
-  return launch_poseidon<3, 8>(out, in, consts, B, split, full_rounds, partial_rounds, pw, n0,
-                               (cudaStream_t)stream);
+  if (width < 2 || width > kMaxWidth || n_limbs != 16 || pw[7] >= 0x7FFFFFFFu || (split && width != 3))
+    return (int)cudaErrorInvalidValue;
+  if (width == 3)
+    return launch_poseidon<3, 8>(out, in, consts, B, split, full_rounds, partial_rounds, pw, n0,
+                                 (cudaStream_t)stream);
+  return launch_slot<kPoseidon, 8>(out, in, consts, B, width, mac_group(pw[7]), full_rounds, partial_rounds,
+                                   poseidon_words(width, full_rounds, partial_rounds, 8), pw, n0,
+                                   (cudaStream_t)stream);
 }
 
 extern "C" int ozl_poseidon_permute_opt(void* out, const void* in, const void* consts, int64_t B,
                                         int width, int full_rounds, int partial_rounds,
                                         int n_limbs, const void* p, uint32_t n0, void* stream) {
-  if (width != 3 || n_limbs != 16) return (int)cudaErrorInvalidValue;
-  return launch_permute<kPoseidonOpt, 3, 8>(out, in, consts, B, full_rounds, partial_rounds,
-                                            poseidon_opt_words<3>(full_rounds, partial_rounds, 8),
-                                            (const uint32_t*)p, n0, (cudaStream_t)stream);
+  if (width < 2 || width > kMaxWidth || n_limbs != 16) return (int)cudaErrorInvalidValue;
+  const int n_words = poseidon_opt_words(width, full_rounds, partial_rounds, 8);
+  if (width == 3)
+    return launch_permute<kPoseidonOpt, 3, 8>(out, in, consts, B, full_rounds, partial_rounds, n_words,
+                                              (const uint32_t*)p, n0, (cudaStream_t)stream);
+  return launch_slot<kPoseidonOpt, 8>(out, in, consts, B, width, 0, full_rounds, partial_rounds, n_words,
+                                      (const uint32_t*)p, n0, (cudaStream_t)stream);
 }

@@ -5,7 +5,8 @@ Port of `openzl_tpu/ops/poseidon2_kernel.py`. The CUDA source is
 module holds the wrapper, the launch counter and the plain torch version.
 Layout and dispatch as in `poseidon_kernel`: (n_limbs, width, B) int32
 Montgomery limbs; a CUDA tensor launches the kernel, a CPU tensor runs the
-plain version.
+plain version. K7 is built at `KERNEL_WIDTHS`, every width Poseidon2 has
+round numbers for; a state of another width is refused before any launch.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ K7 = build.KernelInfo(
     source="openzl_tpu_torch/csrc/poseidon2_kernel.cu",
     replaces="openzl_tpu/ops/poseidon2_kernel.py:53",
 )
+
+#: the state widths K7 is built for (`ROUND_NUMBERS_128`'s)
+KERNEL_WIDTHS = (2, 3, 4, 8, 12)
 
 
 def _small_mul(spec, x: torch.Tensor, c: int) -> torch.Tensor:
@@ -103,7 +107,7 @@ def permute(perm, state: torch.Tensor) -> torch.Tensor:
     """Poseidon2 on (n_limbs, width, B) (K7)."""
     if device_kind(state) == "cpu":
         return poseidon2_permute_plain(perm, state)
-    check_state(perm, state)
+    check_state(perm, state, KERNEL_WIDTHS)
     consts = _words(perm, state.device)
     p_words, n0 = ntt_kernel.word_consts(perm.spec)
     out = torch.empty_like(state)
@@ -113,5 +117,5 @@ def permute(perm, state: torch.Tensor) -> torch.Tensor:
         build.stream_ptr(state),
     )
     build.check(code, K7.name)
-    K7.count(state.shape[2])
+    K7.count(state.shape[2], state_width=perm.width)
     return out

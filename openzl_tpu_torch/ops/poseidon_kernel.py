@@ -10,10 +10,13 @@ re-laid out around a launch. The round constants and matrices go to the
 kernel as one int32 buffer of 32-bit words, built once per device
 (`words_buffer`).
 
-K5 has two variants, both kernels: "wide", one thread per state, and
-"split", four lanes per state with half the serial chain of products, for
-batches too narrow to fill the card (the upper levels of a Merkle build).
-`variant(B)` picks "split" up to `SPLIT_MAX_B` states.
+K5 has two variants at width 3, both kernels: "wide", one thread per
+state, and "split", four lanes per state with half the serial chain of
+products, for batches too narrow to fill the card (the upper levels of a
+Merkle build). `variant(B)` picks "split" up to `SPLIT_MAX_B` states. K5
+and K6 are built at every width in `KERNEL_WIDTHS` (2 to 17); at widths
+other than 3 they run one kernel with the width as an argument ("wide"
+only), and a state of another width is refused before any launch.
 
 Dispatch: a CUDA tensor launches the kernel (a failed build or launch
 raises), a CPU tensor runs the plain version. Nothing moves between devices.
@@ -40,10 +43,13 @@ K6 = build.KernelInfo(
     replaces="openzl_tpu/ops/poseidon_kernel.py:198",
 )
 
-#: the kernels are instantiated for this state width and limb count
-#: (arity 2 over a 254/255-bit field: BN254 Fr, BLS12-381 Fr)
-KERNEL_WIDTH = 3
+#: the state widths and the limb count the kernels are built for: arity 1
+#: to 16 (the reference's pinned widths 2-6, 9 and 17, and the searched
+#: ones between) over a 254/255-bit field (BN254 Fr, BLS12-381 Fr)
+KERNEL_WIDTHS = tuple(range(2, 18))
 KERNEL_LIMBS = 16
+#: the width of K5's split variant (and of the Merkle tree's hash)
+SPLIT_WIDTH = 3
 
 #: K5 runs the split variant up to this many states, the wide one above:
 #: where the two variants' times cross on the H100 (`tools/kernel_probe.py`;
@@ -52,9 +58,10 @@ SPLIT_MAX_B = 10240
 VARIANTS = ("wide", "split")
 
 
-def variant(batch: int) -> str:
-    """The K5 variant the wrapper launches for `batch` states."""
-    return "split" if batch <= SPLIT_MAX_B else "wide"
+def variant(batch: int, width: int = SPLIT_WIDTH) -> str:
+    """The K5 variant the wrapper launches for `batch` states of `width`
+    elements: "split" only at width 3."""
+    return "split" if width == SPLIT_WIDTH and batch <= SPLIT_MAX_B else "wide"
 
 
 def words(arr: np.ndarray, limb_axis: int) -> np.ndarray:
@@ -72,16 +79,17 @@ def words_buffer(parts, device) -> torch.Tensor:
     return torch.as_tensor(flat.view(np.int32).copy(), device=device)
 
 
-def check_state(perm, state: torch.Tensor) -> None:
-    """The shape, type and layout a permutation kernel takes."""
+def check_state(perm, state: torch.Tensor, widths=KERNEL_WIDTHS) -> None:
+    """The shape, type and layout a permutation kernel takes, at one of the
+    state `widths` it is built for."""
     n, w = perm.spec.n_limbs, perm.width
     if state.dtype != torch.int32 or state.ndim != 3 or tuple(state.shape[:2]) != (n, w):
         raise ValueError(f"state must be int32 (n_limbs={n}, width={w}, B): {state.dtype} {tuple(state.shape)}")
     if not state.is_contiguous():
         raise ValueError("state must be contiguous")
-    if (w, n) != (KERNEL_WIDTH, KERNEL_LIMBS):
-        raise ValueError(f"the kernel is built for width {KERNEL_WIDTH} and {KERNEL_LIMBS} limbs, "
-                         f"not width {w} and {n} limbs")
+    if w not in widths or n != KERNEL_LIMBS:
+        raise ValueError(f"the kernel is built for widths {', '.join(map(str, widths))} and {KERNEL_LIMBS} "
+                         f"limbs, not width {w} and {n} limbs")
 
 
 def pow5_plain(spec, x: torch.Tensor) -> torch.Tensor:
@@ -104,11 +112,13 @@ def _limb_tensors(perm, device):
 
 
 def _sum_axis(spec, prod: torch.Tensor, axis: int) -> torch.Tensor:
-    parts = prod.unbind(axis)
-    acc = parts[0]
-    for x in parts[1:]:
-        acc = limb.add(spec, acc, x)
-    return acc
+    """The sum mod p over `axis`, pairwise: each step adds the first half
+    to the second (an odd element waits), so n terms take log2(n) steps."""
+    while prod.shape[axis] > 1:
+        n, half = prod.shape[axis], prod.shape[axis] // 2
+        total = limb.add(spec, prod.narrow(axis, 0, half), prod.narrow(axis, half, half))
+        prod = torch.cat([total, prod.narrow(axis, n - 1, 1)], dim=axis) if n % 2 else total
+    return prod.select(axis, 0)
 
 
 def _mds_mul(spec, mat: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -202,18 +212,21 @@ def _launch(entry: str, kernel: build.KernelInfo, perm, state, consts, *head) ->
         build.stream_ptr(state),
     )
     build.check(code, f"{kernel.name}")
-    kernel.count(B)
+    kernel.count(B, state_width=perm.width)
     return out
 
 
 def permute(perm, state: torch.Tensor, which: str | None = None) -> torch.Tensor:
     """Classic Poseidon on (n_limbs, width, B) (K5). On the card `which`
-    ("wide" or "split") forces a variant; by default `variant(B)` picks."""
+    ("wide", or "split" at width 3) forces a variant; by default
+    `variant(B, width)` picks."""
     if device_kind(state) == "cpu":
         return permute_plain(perm, state)
-    which = which or variant(state.shape[2])
+    which = which or variant(state.shape[2], perm.width)
     if which not in VARIANTS:
         raise ValueError(f"K5 variant {which!r} is not one of {VARIANTS}")
+    if which == "split" and perm.width != SPLIT_WIDTH:
+        raise ValueError(f"K5's split variant is built for width {SPLIT_WIDTH} only, not width {perm.width}")
     return _launch("ozl_poseidon_permute", K5, perm, state, _classic_words(perm, state.device),
                    int(which == "split"))
 

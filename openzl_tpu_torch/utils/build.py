@@ -42,9 +42,10 @@ class KernelInfo:
     many times a wrapper has launched it (plain counters the smoke run
     zeroes before driving the main path): in all, by the launch's batch
     rounded up to a power of two (`by_width`), so a ranking of the kernels
-    can read the shapes the path really gives them, and by the field's limb
+    can read the shapes the path really gives them, by the field's limb
     count where the wrapper gives it (`by_limbs`: 16 for BN254 Fq, 24 for
-    BLS12-381 Fq)."""
+    BLS12-381 Fq), and by a permutation's state width where the wrapper
+    gives it (`by_state_width`)."""
 
     name: str
     source: str
@@ -53,20 +54,24 @@ class KernelInfo:
     launches: int = 0
     by_width: dict = dataclasses.field(default_factory=dict)
     by_limbs: dict = dataclasses.field(default_factory=dict)
+    by_state_width: dict = dataclasses.field(default_factory=dict)
 
-    def count(self, batch: int, limbs: Optional[int] = None) -> None:
+    def count(self, batch: int, limbs: Optional[int] = None, state_width: Optional[int] = None) -> None:
         """Record one launch over `batch` elements (states, points, ...) of
-        a field of `limbs` 16-bit limbs."""
+        a field of `limbs` 16-bit limbs, states of `state_width` elements."""
         self.launches += 1
         bucket = 1 << (int(batch) - 1).bit_length() if batch > 0 else 0
         self.by_width[bucket] = self.by_width.get(bucket, 0) + 1
         if limbs is not None:
             self.by_limbs[limbs] = self.by_limbs.get(limbs, 0) + 1
+        if state_width is not None:
+            self.by_state_width[state_width] = self.by_state_width.get(state_width, 0) + 1
 
     def reset(self) -> None:
         self.launches = 0
         self.by_width = {}
         self.by_limbs = {}
+        self.by_state_width = {}
 
 
 def _sources():

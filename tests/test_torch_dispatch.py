@@ -1,7 +1,10 @@
 """What the port's kernel wrappers do around a launch, checked on the CPU:
 the launch counts by batch width (`build.KernelInfo`), K9's point-major
 copy of the points (`ec_kernel.point_words`) against the limb-planar
-points, and the K5 wrapper's choice of variant by batch.
+points, the K5 wrapper's choice of variant by batch and width, and the
+Poseidon wrappers' state widths: K5 and K6 launch at every width from 2
+to 17 and K7 at 2, 3, 4, 8 and 12, and any other width (or K5's split
+variant at a width but 3) is refused before the library is called.
 
 The launch path is driven on CPU tensors with the kernel library replaced
 by a recording stand-in (`_FakeLib`), whose K5 entry point computes the
@@ -48,18 +51,20 @@ def _view(ptr: int, shape) -> np.ndarray:
 
 class _FakeLib:
     """Stands in for the kernel library: records each K5 launch's batch and
-    variant flag and, when `compute`, writes the plain permutation into the
+    variant flag (`calls`) and state width (`widths`) and, when `compute`,
+    writes the plain permutation of the instance of that width into the
     output."""
 
-    def __init__(self, perm):
-        self.perm, self.calls, self.compute = perm, [], True
+    def __init__(self, *perms):
+        self.perms, self.calls, self.widths, self.compute = {p.width: p for p in perms}, [], [], True
 
     def ozl_poseidon_permute(self, out, state, consts, B, split, width, rf, rp, n_limbs, p, n0, stream):
         self.calls.append((B, split))
+        self.widths.append(width)
         if not self.compute:
             return 0
         x = torch.from_numpy(_view(state, (n_limbs, width, B)).copy())
-        _view(out, (n_limbs, width, B))[...] = poseidon_kernel.permute_plain(self.perm, x).numpy()
+        _view(out, (n_limbs, width, B))[...] = poseidon_kernel.permute_plain(self.perms[width], x).numpy()
         return 0
 
 
@@ -73,6 +78,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(build, "stream_ptr", lambda t: None)
     monkeypatch.setattr(poseidon_kernel.K5, "launches", 0)
     monkeypatch.setattr(poseidon_kernel.K5, "by_width", {})
+    monkeypatch.setattr(poseidon_kernel.K5, "by_state_width", {})
     return perm, fake
 
 
@@ -119,6 +125,22 @@ def test_k5_wrapper_picks_variant_by_batch(fake_card):
     assert poseidon_kernel.K5.by_width == dict(want)
     with pytest.raises(ValueError, match="variant"):
         poseidon_kernel.permute(perm, x[:, :, :5].contiguous(), "both")
+
+
+def test_k5_wide_at_width_5_matches_plain(fake_card):
+    """A width-5 state goes through the K5 launch path as "wide" (the split
+    variant is width 3's), the launch counted under its state width."""
+    _, fake = fake_card
+    perm = Poseidon.create(BN254_FR, 4, device="cpu")
+    fake.perms[5] = perm
+    assert poseidon_kernel.variant(1, 5) == poseidon_kernel.variant(1 << 16, 5) == "wide"
+    rng = np.random.default_rng(47)
+    vals = np.array([[int.from_bytes(rng.bytes(40), "little") % BN254_FR.modulus for _ in range(6)]
+                     for _ in range(5)], dtype=object)
+    x = limb.tensor(limb.pack_mont(BN254_FR, vals), "cpu")
+    assert torch.equal(poseidon_kernel.permute(perm, x), poseidon_kernel.permute_plain(perm, x))
+    assert (fake.calls, fake.widths) == ([(6, 0)], [5])
+    assert poseidon_kernel.K5.by_state_width == {5: 1}
 
 
 def test_merkle_build_through_k5_launch_path_matches_reference(fake_card):
@@ -204,3 +226,96 @@ def test_ec_wrappers_launch_the_built_fields(curve, monkeypatch):
     ec_kernel.ec_dbl(curve, P)
     assert fake.calls == ["ozl_ec_add", "ozl_ec_dbl"]
     assert ec_kernel.K3.by_limbs == ec_kernel.K4.by_limbs == {curve.base.n_limbs: 1}
+
+
+class _WidthLib:
+    """Stands in for the kernel library: records each Poseidon entry point
+    called with the state width it was given."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ozl_poseidon_permute(self, out, state, consts, B, split, width, *rest):
+        self.calls.append(("ozl_poseidon_permute", width, split))
+        return 0
+
+    def ozl_poseidon_permute_opt(self, out, state, consts, B, width, *rest):
+        self.calls.append(("ozl_poseidon_permute_opt", width))
+        return 0
+
+    def ozl_poseidon2_permute(self, out, state, consts, B, width, *rest):
+        self.calls.append(("ozl_poseidon2_permute", width))
+        return 0
+
+
+@pytest.fixture
+def width_card(monkeypatch):
+    """The Poseidon wrappers' launch paths on CPU tensors through
+    `_WidthLib`, with instances of any width made from the width-3 ones
+    (`dataclasses.replace`: the stand-in reads no constant)."""
+    import dataclasses
+
+    from openzl_tpu_torch.crypto.poseidon2 import Poseidon2
+    from openzl_tpu_torch.ops import poseidon2_kernel
+
+    fake = _WidthLib()
+    for mod in (poseidon_kernel, poseidon2_kernel):
+        monkeypatch.setattr(mod, "device_kind", lambda *t: "cuda")
+    monkeypatch.setattr(build, "lib", lambda: fake)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: None)
+    for k in (poseidon_kernel.K5, poseidon_kernel.K6, poseidon2_kernel.K7):
+        monkeypatch.setattr(k, "launches", 0)
+        monkeypatch.setattr(k, "by_width", {})
+        monkeypatch.setattr(k, "by_state_width", {})
+    perm, perm2 = Poseidon.create(BN254_FR, 2, device="cpu"), Poseidon2.create(BN254_FR, 2, device="cpu")
+
+    def at(width, two=False):
+        return dataclasses.replace(perm2 if two else perm, width=width, _dev={})
+
+    def state(width):
+        return torch.zeros((BN254_FR.n_limbs, width, 4), dtype=torch.int32)
+
+    return fake, at, state, poseidon2_kernel
+
+
+def test_poseidon_wrappers_launch_every_built_width(width_card):
+    """K5 and K6 reach the library at every width from 2 to 17 (K5 split
+    only at width 3, where 4 states are a narrow batch), K7 at 2, 3, 4, 8
+    and 12, each launch counted under its state width."""
+    fake, at, state, poseidon2_kernel = width_card
+    for w in poseidon_kernel.KERNEL_WIDTHS:
+        poseidon_kernel.permute(at(w), state(w))
+        poseidon_kernel.permute_optimized(at(w), state(w))
+    for w in poseidon2_kernel.KERNEL_WIDTHS:
+        poseidon2_kernel.permute(at(w, two=True), state(w))
+    assert poseidon_kernel.KERNEL_WIDTHS == tuple(range(2, 18))
+    assert poseidon2_kernel.KERNEL_WIDTHS == (2, 3, 4, 8, 12)
+    want = [c for w in poseidon_kernel.KERNEL_WIDTHS
+            for c in (("ozl_poseidon_permute", w, int(w == 3)), ("ozl_poseidon_permute_opt", w))]
+    want += [("ozl_poseidon2_permute", w) for w in poseidon2_kernel.KERNEL_WIDTHS]
+    assert fake.calls == want
+    for k, widths in ((poseidon_kernel.K5, poseidon_kernel.KERNEL_WIDTHS),
+                      (poseidon_kernel.K6, poseidon_kernel.KERNEL_WIDTHS),
+                      (poseidon2_kernel.K7, poseidon2_kernel.KERNEL_WIDTHS)):
+        assert k.by_state_width == {w: 1 for w in widths}
+
+
+def test_poseidon_wrappers_refuse_unbuilt_widths_before_any_launch(width_card):
+    """A width outside the built set raises a ValueError naming the width
+    and the built widths, and "split" raises at any width but 3, before
+    the library is called."""
+    fake, at, state, poseidon2_kernel = width_card
+    for w in (1, 18, 20):
+        with pytest.raises(ValueError, match=rf"widths 2, 3, .*, 17 .*not width {w} "):
+            poseidon_kernel.permute(at(w), state(w))
+        with pytest.raises(ValueError, match=rf"not width {w} "):
+            poseidon_kernel.permute_optimized(at(w), state(w))
+    for w in (5, 6, 16):
+        with pytest.raises(ValueError, match=rf"widths 2, 3, 4, 8, 12 .*not width {w} "):
+            poseidon2_kernel.permute(at(w, two=True), state(w))
+    for w in (2, 4, 5, 17):
+        with pytest.raises(ValueError, match=rf"split variant .*width 3 only, not width {w}"):
+            poseidon_kernel.permute(at(w), state(w), "split")
+    assert fake.calls == []
+    poseidon_kernel.permute(at(3), state(3), "split")
+    assert fake.calls == [("ozl_poseidon_permute", 3, 1)]

@@ -221,9 +221,10 @@ def test_ec_kernels_refuse_an_unbuilt_field(cuda):
     assert (ec_kernel.K3.launches, ec_kernel.K4.launches) == launches
 
 
-def _states(spec, n, seed, device):
-    """(n_limbs, 3, n) random Montgomery-form states with rows 0, 1, p - 1."""
-    x = _field(spec, 3 * n, seed).reshape(spec.n_limbs, 3, n)
+def _states(spec, n, seed, device, width=3):
+    """(n_limbs, width, n) random Montgomery-form states with 0, 1, p - 1
+    and p - 2 among them."""
+    x = _field(spec, width * n, seed).reshape(spec.n_limbs, width, n)
     return limb.to_mont(spec, x).contiguous().to(device)
 
 
@@ -236,6 +237,28 @@ def test_k5_k6_k7_kernels_match_plain(cuda, spec):
     assert torch.equal(poseidon_kernel.permute_optimized(perm, x), want)
     assert torch.equal(poseidon2_kernel.permute(perm2, x), poseidon2_kernel.poseidon2_permute_plain(perm2, x))
     assert torch.equal(perm.permute(x.cpu()), want.cpu())
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BLS12_381_FR], ids=lambda s: s.name)
+@pytest.mark.parametrize("width", [w for w in poseidon_kernel.KERNEL_WIDTHS if w != 3])
+def test_k5_k6_kernels_match_plain_at_other_widths(cuda, spec, width):
+    """K5 and K6 at every other built width (the run-time-width kernel),
+    on 129 states (a block and one more), over both fields: BLS12-381
+    Fr's MDS rows pass the unreduced sum's bound from width 5 on."""
+    x = _states(spec, 129, 41 + width, cuda, width)
+    perm = Poseidon.create(spec, width - 1, device=cuda)
+    want = poseidon_kernel.permute_plain(perm, x)
+    assert torch.equal(poseidon_kernel.permute(perm, x), want)
+    assert torch.equal(poseidon_kernel.permute_optimized(perm, x), want)
+    assert poseidon_kernel.variant(1, width) == "wide"
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BLS12_381_FR], ids=lambda s: s.name)
+@pytest.mark.parametrize("width", [w for w in poseidon2_kernel.KERNEL_WIDTHS if w != 3])
+def test_k7_kernel_matches_plain_at_other_widths(cuda, spec, width):
+    x = _states(spec, 129, 43 + width, cuda, width)
+    perm2 = Poseidon2.create(spec, width - 1, device=cuda)
+    assert torch.equal(poseidon2_kernel.permute(perm2, x), poseidon2_kernel.poseidon2_permute_plain(perm2, x))
 
 
 @pytest.mark.parametrize("which", poseidon_kernel.VARIANTS)

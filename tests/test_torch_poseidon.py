@@ -14,6 +14,7 @@ round numbers and code. The BLS12-381 Fr permutation reproduces the sage
 golden vector.
 """
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -36,7 +37,8 @@ from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
 from openzl_tpu_torch.crypto.poseidon2 import Poseidon2
 from openzl_tpu_torch.fields import limb
 from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
-from openzl_tpu_torch.ops import poseidon_kernel
+from openzl_tpu_torch.ops import poseidon2_kernel, poseidon_kernel
+from openzl_tpu_torch.utils import build
 
 # xdist workers share the machine's cores: one torch thread each
 if os.environ.get("PYTEST_XDIST_WORKER"):
@@ -163,15 +165,34 @@ def test_bls12_381_golden_vector():
         assert [int(v) for v in limb.unpack_mont(BLS12_381_FR, out)[:, 0]] == [int(v) for v in vec["output"]]
 
 
-def test_entry_points_default_to_cuda_and_wrappers_refuse_other_widths():
+def test_entry_points_default_to_cuda_and_wrappers_refuse_unbuilt_states(monkeypatch):
     """numpy inputs go to the instance's device, cuda unless asked; a CUDA
-    state of a width the kernels were not built for is refused before any
-    launch (checked here on a CPU tensor through the wrapper's check)."""
+    state the kernels were not built for is refused before any launch
+    (checked on CPU tensors through the wrappers, their device check
+    patched to "cuda" and the library to one that fails if called): a
+    width outside the built set (2 to 17 for K5 and K6; 2, 3, 4, 8 and 12
+    for K7), K5's split variant at a width but 3, and an int64 state."""
     assert Poseidon.create(BN254_FR, 2).device == torch.device("cuda")
     assert Poseidon2.create(BN254_FR, 2).device == torch.device("cuda")
+
+    def no_library():
+        raise AssertionError("the library was called")
+
+    monkeypatch.setattr(poseidon_kernel, "device_kind", lambda *t: "cuda")
+    monkeypatch.setattr(poseidon2_kernel, "device_kind", lambda *t: "cuda")
+    monkeypatch.setattr(build, "lib", no_library)
     perm = Poseidon.create(BN254_FR, 4, device="cpu")
     state = torch.zeros((BN254_FR.n_limbs, 5, 8), dtype=torch.int32)
-    with pytest.raises(ValueError, match="width 3"):
-        poseidon_kernel.check_state(perm, state)
+    poseidon_kernel.check_state(perm, state)  # width 5 is built for K5 and K6
+    with pytest.raises(ValueError, match="split variant is built for width 3 only, not width 5"):
+        poseidon_kernel.permute(perm, state, "split")
+    wide = dataclasses.replace(perm, width=18, _dev={})
+    state18 = torch.zeros((BN254_FR.n_limbs, 18, 8), dtype=torch.int32)
+    for fn in (poseidon_kernel.permute, poseidon_kernel.permute_optimized):
+        with pytest.raises(ValueError, match="widths 2, 3, .*, 17 and 16 limbs, not width 18"):
+            fn(wide, state18)
+    p2 = dataclasses.replace(Poseidon2.create(BN254_FR, 2, device="cpu"), width=5, _dev={})
+    with pytest.raises(ValueError, match="widths 2, 3, 4, 8, 12 and 16 limbs, not width 5"):
+        poseidon2_kernel.permute(p2, state)
     with pytest.raises(ValueError, match="int32"):
-        poseidon_kernel.check_state(Poseidon.create(BN254_FR, 2, device="cpu"), state.long())
+        poseidon_kernel.permute(perm, state.long())
