@@ -7,13 +7,24 @@ with dense polynomials, and checks every hand-written kernel on the way.
 Phases:
 
   1. device   the card's name and power limit; fails without CUDA
-  2. build    nvcc builds the kernels (K1-K9, K3s; K3, K4, K9 and K3s at
-              16 and 24 limbs; K5 and K6 at widths 2-17, K7 at 2, 3, 4, 8
-              and 12) and `make -C native` the host library;
-              prints the build seconds (and each .cu file's nvcc process)
-              and each kernel's registers and spill stores (`-Xptxas -v`)
+  2. build    nvcc builds the kernels (K1 with its exponentiation
+              `mont_pow`, K2-K9, K3s; K3, K4, K9 and K3s at 16 and 24
+              limbs; K5 and K6 at widths 2-17, K7 at 2, 3, 4, 8 and 12)
+              and `make -C native` the host library, and, beside them,
+              `tools/field_microbench.cu`, whose run gives one product's
+              and one square's latency at 16 and 24 limbs (the latency
+              bound of K1's exponentiation chain); prints the build
+              seconds (and each .cu file's nvcc process) and each
+              kernel's registers and spill stores (`-Xptxas -v`)
   3. kernels  each kernel against its plain torch version on the card,
               bit-exact, at the main path's shapes; prints both times
+              and the device time: K1's product at 2^17 elements and at
+              1 and 4 (the narrow launches the request still makes),
+              K1's exponentiation `mont_pow` over BN254 Fq and Fr and
+              BLS12-381 Fq at 1, 4 and 2^10 elements, exponents p - 2,
+              0, 1 and a random one, each with its operations bound and
+              its latency bound (squares and products times their
+              latency on one warp)
   3b. kernels K3 (add, madd) and K4 at 24 limbs, over BLS12-381 G1 and G2
               at 2^16 points with every mask case, the same way
   4. roundtrip  port on CUDA against port on CPU, same seeds, 2 chain
@@ -22,9 +33,12 @@ Phases:
               constraints): compile once, answer 3 prove requests (fresh
               witness, fresh r and s), verify each, reject a fuzzed input;
               launch counters zeroed before the requests and read after
-              (every Groth16 kernel, the fold K9 and K3's lifted scan
-              included, must launch; K1, K3, K4 and scan launches by batch
-              width are printed); then one more request under
+              (every Groth16 kernel, the fold K9, K3's lifted scan and
+              K1's exponentiation included, must launch; K1, mont_pow,
+              K3, K4 and scan launches by batch width are printed, and
+              the BN254 requests' K1 launches of 1-4 elements must be at
+              most 453, a tenth of the 4,534 the exponentiation chains
+              made one product a launch); then one more request under
               torch.profiler (device busy share, device time by kernel,
               host launches and syncs; `openzl_tpu_torch.utils.profile`),
               and one more whose lifted scans' inputs are kept (the chunk
@@ -90,11 +104,13 @@ Phases:
               verify, batch_verify, params bytes, a product and a division;
               K9 must launch at 24 limbs
 
-Prints a JSON line of per-kernel results (times, launches on their path,
-and the bound: the least time the card could take for the same work; the
-rows of K3, K4, K9 and K3s also carry their BLS12-381 launches and runs,
-with each kernel's registers and spills, and the rows of K5, K6 and K7
-their phase 6b runs and launches by state width), then,
+After the phases, K6's time and bound share beside K5's at each width
+(phases 6 and 6b). Prints a JSON line of per-kernel results (times,
+launches on their path, and the bound: the least time the card could take
+for the same work; the rows of K3, K4, K9 and K3s also carry their
+BLS12-381 launches and runs, with each kernel's registers and spills, the
+rows of K5, K6 and K7 their phase 6b runs and launches by state width, and
+the row of `mont_pow` every run with its latency bound), then,
 as the last line, {"ok": true, "device": {...}}. Any failure exits non-zero
 with no result. Imports only the port (`openzl_tpu_torch`), never JAX.
 
@@ -171,25 +187,30 @@ def _ptxas_key(entry_name: str):
 
 def _poseidon_ptxas_key(entry_name: str):
     """(kernel, template arguments) of a mangled entry name of the Poseidon
-    kernels, e.g. ("slot_kernel", (0, 8)) or ("permute_kernel", (2, 12,
-    8)), or None for the other kernels."""
+    kernels, e.g. ("slot_kernel", (0, 8)), ("poseidon_opt_kernel", (3, 8))
+    or ("permute_kernel", (2, 12, 8)), or None for the other kernels."""
     import re
 
-    m = re.search(r"\d(slot_kernel|permute_kernel|poseidon_wide_kernel|poseidon_split_kernel)I((?:Li\d+E)+)E",
+    m = re.search(r"\d(slot_kernel|permute_kernel|poseidon_wide_kernel|poseidon_split_kernel|poseidon_opt_kernel)"
+                  r"I((?:Li\d+E)+)E",
                   entry_name)
     return None if m is None else (m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2))))
 
 
 def phase_build():
-    """Builds the kernels; returns {(kernel, words, ext): (registers, spill
-    store bytes)} of the EC and fold kernels (`_ptxas_key`), and the same
-    for the Poseidon kernels by (kernel, template arguments)
-    (`_poseidon_ptxas_key`)."""
+    """Builds the kernels and the field microbenchmark; returns ({(kernel,
+    words, ext): (registers, spill store bytes)} of the EC and fold kernels
+    (`_ptxas_key`), and the same for the Poseidon kernels by (kernel,
+    template arguments) (`_poseidon_ptxas_key`); {(n_limbs, field, op):
+    ns} of one product's and one square's latency on one warp
+    (`kernel_probe.product_latency`))."""
     import re
 
+    from openzl_tpu_torch.tools import kernel_probe
     from openzl_tpu_torch.utils import build
 
     t0 = time.perf_counter()
+    micro, micro_proc = kernel_probe.start_microbench()
     path = build.build()
     build.lib()
     t_nvcc = time.perf_counter() - t0
@@ -219,7 +240,13 @@ def phase_build():
         key = _ptxas_key(name) or _poseidon_ptxas_key(name)
         if key is not None and regs and spill:
             table[key] = (int(regs.group(1)), int(spill.group(1)))
-    return table
+    text, _ = micro_proc.communicate()
+    if micro_proc.returncode:
+        fail(f"nvcc failed for tools/field_microbench.cu:\n{text[-3000:]}")
+    latency = kernel_probe.product_latency(micro)
+    log("[build] field_microbench, one warp's latency: "
+        + ", ".join(f"{n} limbs {field} {op} {ns:.2f} ns" for (n, field, op), ns in sorted(latency.items())))
+    return table, latency
 
 
 # ---------------------------------------------------------------------------
@@ -284,21 +311,14 @@ EC_PRODUCTS = {("add", 1): (11, 5), ("madd", 1): (7, 4), ("dbl", 1): (2, 5),
 
 
 def _device_ms(fn, reps: int):
-    """Device time per call of fn on the card (torch.profiler: its kernels'
-    durations summed over reps calls, over reps), without the host's cost
-    of a launch; None off the card or when the profiler recorded no
-    kernel."""
-    import torch
-
+    """Device time per call of fn on the card (`utils.profile.device_ms`:
+    torch.profiler, its kernels' durations summed over reps calls, over
+    reps, profiled again while a kernel record is lost), without the
+    host's cost of a launch; None off the card or when no profile kept
+    every record."""
     from openzl_tpu_torch.utils import profile as prof
 
-    if not torch.cuda.is_available():
-        return None
-    fn()
-    report = prof.profile(lambda: [fn() for _ in range(reps)])
-    if not report.kernels:
-        return None
-    return sum(ms for ms, _, _ in report.kernels) / reps
+    return prof.device_ms(fn, reps)
 
 
 def _check(name, results, got, exp, ms, plain_ms, shape, work, kern=None, ptx=None):
@@ -367,13 +387,33 @@ def _ec_inputs(curve, n, rng, device):
     return tuple(scale(P)), tuple(scale(Q_aff)), tuple(Q_aff)
 
 
-def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1):
+def _pow_work(spec, exponent: int, n: int, latency):
+    """(word products, bytes, latency bound ms or None) of K1's
+    exponentiation of n elements: bit length - 1 squares and one product
+    per set bit (the top bit's one x a included), each element read and
+    written once; the latency bound is one thread's chain of those squares
+    and products, each at the lesser of one square's and one product's
+    latency on one warp of the field the kernel runs (F1c below its
+    bound)."""
+    squares, products = max(exponent.bit_length() - 1, 0), bin(exponent).count("1")
+    top = spec.modulus >> (16 * spec.n_limbs - 32)
+    field = "F1c" if spec.n_limbs > 2 and top < 0x7FFFFFFF else "F1"
+    lat = None
+    if latency is not None:
+        lat = (squares + products) * min(latency[spec.n_limbs, field, op] for op in ("sqr", "mul")) / 1e6
+    return (n * _mont_words(spec.n_limbs, products, squares), 2 * n * spec.n_limbs * 4, lat)
+
+
+def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1, latency=None,
+                  pow_sizes=(1, 4, 1 << 10), pow_reps: int = 20):
+    """Phase 3; `latency` is phase 2's {(n_limbs, field, op): ns} (None:
+    no latency bound); K1's exponentiation runs at `pow_sizes` elements."""
     import torch
 
     from openzl_tpu_torch.ops import ec_kernel, ntt, ntt_kernel
     from openzl_tpu_torch.proof_systems import BLS12_381, BN254
 
-    BN254_FR, BLS12_381_FQ = BN254.g1.scalar, BLS12_381.g1.base
+    BN254_FR, BN254_FQ, BLS12_381_FQ = BN254.g1.scalar, BN254.g1.base, BLS12_381.g1.base
     BN254_G1, BN254_G2 = BN254.g1, BN254.g2
     dev = torch.device(device)
     rng = random.Random(seed)
@@ -397,6 +437,34 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
     pms = _time(lambda: ntt_kernel.mont_mul_plain(BN254_FR, a, s), 3, dev)
     _check("mont_mul", results, [got], [exp], ms, pms, f"bn254_fr scale (n={n})",
            (_mont_words(16, n), 2 * n * 16 * 4 + 16 * 4), lambda: ntt_kernel.mont_scale(BN254_FR, a, s))
+    # K1 at 1 and 4 elements of BN254 Fq: the narrow products the request
+    # still launches (a launch's own cost)
+    for m in (1, 4):
+        a = _rand_field(BN254_FQ, 4, rng, dev)[:, 4 - m:].contiguous()
+        b = _rand_field(BN254_FQ, 4, rng, dev)[:, 4 - m:].contiguous()
+        got, exp = ntt_kernel.mont_mul(BN254_FQ, a, b), ntt_kernel.mont_mul_plain(BN254_FQ, a, b)
+        ms = _time(lambda: ntt_kernel.mont_mul(BN254_FQ, a, b), 50, dev)
+        pms = _time(lambda: ntt_kernel.mont_mul_plain(BN254_FQ, a, b), 3, dev)
+        _check("mont_mul", results, [got], [exp], ms, pms, f"bn254_fq mul (n={m})",
+               (_mont_words(16, m), 3 * m * 16 * 4), lambda: ntt_kernel.mont_mul(BN254_FQ, a, b))
+
+    # K1's exponentiation against its plain chain: the Fermat inverse (p -
+    # 2), 0, 1 and a random 256-bit exponent, at 1, 4 and 2^10 elements
+    # (0, 1 and p - 1 among the wider ones); BN254 Fq p - 2 at 1 element
+    # first, the request's case
+    for spec in (BN254_FQ, BN254_FR, BLS12_381_FQ):
+        p = spec.modulus
+        for label, e in (("p - 2", p - 2), ("0", 0), ("1", 1), ("random", rng.getrandbits(256))):
+            for m in pow_sizes:
+                a = _rand_field(spec, max(m, 4), rng, dev)[:, 3 if m == 1 else 0:][:, :m].contiguous()
+                got = ntt_kernel.mont_pow(spec, a, e)
+                exp, pms = _wall(lambda: ntt_kernel.mont_pow_plain(spec, a, e), dev)  # one plain run
+                ms = _time(lambda: ntt_kernel.mont_pow(spec, a, e), pow_reps, dev)
+                work = _pow_work(spec, e, m, latency)
+                lat = "latency bound not measured" if work[2] is None else f"latency bound {work[2]:.4f} ms"
+                _check("mont_pow", results, [got], [exp], ms, pms,
+                       f"{spec.name} e = {label} ({e.bit_length()} bits, n={m}; {lat})", work,
+                       lambda: ntt_kernel.mont_pow(spec, a, e))
 
     # K2: every (M, lanes, post-twiddle) launch of the 2^log_n NTT plan
     node, _ = ntt._fourstep_plan(BN254_FR, log_n, False, 1, dev)
@@ -514,6 +582,12 @@ def _record_scans(fn):
     return seen
 
 
+#: K1 launches of 1-4 elements a prove request may make: a tenth of the
+#: 4,534 of three BN254 requests when each Fermat inverse was a chain of
+#: one-product launches (PERF.md)
+NARROW_K1_PER_REQUEST = 4534 / 3 / 10
+
+
 def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda", default: bool = False):
     """Phase 5 over BN254, or with `default` phase 5c: the same slice
     through `Groth16()` with no arguments (BLS12-381 on the card; on the
@@ -575,9 +649,18 @@ def phase_slice(chain: int, proofs: int, all_kernels, kernels, device="cuda", de
     peak = f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB" if cuda else "not measured"
     log(f"[{tag}] launches during the {proofs} proves: {launches}; peak device memory {peak}")
     for k in kernels:
-        if k.name in ("mont_mul", "ec_add", "ec_dbl", "ec_lifted_scan"):
+        if k.name in ("mont_mul", "mont_pow", "ec_add", "ec_dbl", "ec_lifted_scan"):
             log(f"[{tag}] {k.name} launches by batch (rounded up to a power of two): "
                 + ", ".join(f"{w}: {n}" for w, n in sorted(k.by_width.items())))
+    # K1's narrow launches: before K1's exponentiation, each Fermat inverse
+    # was a chain of some 380 (BN254) to 570 one-product launches
+    k1 = next(k for k in kernels if k.name == "mont_mul")
+    narrow = sum(n for w, n in k1.by_width.items() if 0 < w <= 4)
+    limit = NARROW_K1_PER_REQUEST * proofs
+    log(f"[{tag}] mont_mul launches of 1-4 elements during the {proofs} proves: {narrow} (at most {limit:.0f}); "
+        f"mont_pow launches: {launches.get('mont_pow', 0)}")
+    if cuda and narrow > limit:
+        fail(f"{narrow} mont_mul launches of 1-4 elements in {proofs} requests, more than {limit:.0f}")
     before = {k.name: k.launches for k in kernels}
     report = prof.profile(request)
     during = {k.name: k.launches - before[k.name] for k in kernels}
@@ -817,6 +900,14 @@ def _perm_words(name, perm) -> float:
     return _mont_words(perm.spec.n_limbs, sboxes, 2 * sboxes) + matrices
 
 
+#: {(field, width): {kernel: (ms, work)}} of phases 6 and 6b: K6 beside K5
+PERM_RUNS = {}
+#: phase 2's ptxas keys of the width-3 Poseidon kernels
+WIDTH3_PTXAS = {"poseidon_permute": ("poseidon_wide_kernel", (3, 8)),
+                "poseidon_permute_opt": ("poseidon_opt_kernel", (3, 8)),
+                "poseidon2_permute": ("permute_kernel", (2, 3, 8))}
+
+
 def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, log_full: int = 19,
                reps: int = 20, seed: int = 3):
     """Phase 6. Returns (kernel results, launches of the slice's kernels)."""
@@ -855,7 +946,8 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
         pms = _time(plain, 1, dev)
         _check(name, results, [got], [exp], ms, pms,
                f"bn254_fr width 3 (B={B}, {per_state[name]:.0f} word products per state)",
-               (B * per_state[name], 2 * x.numel() * 4), kern)
+               (B * per_state[name], 2 * x.numel() * 4), kern, WIDTH3_PTXAS[name])
+        PERM_RUNS.setdefault(("bn254_fr", 3), {})[name] = (ms, (B * per_state[name], 2 * x.numel() * 4))
         plain_out[name] = (exp, pms)
 
     # both K5 variants at the batch sizes around a block of 128 states, a
@@ -998,50 +1090,6 @@ def _ptxas_runs(name, width):
     return ("slot_kernel", (0 if name == "poseidon_permute" else 1, 8))
 
 
-def _inverse_mod(m, p):
-    """The inverse of the square matrix m (lists of ints) over F_p."""
-    n = len(m)
-    a = [[*row, *(int(i == j) for j in range(n))] for i, row in enumerate(m)]
-    for c in range(n):
-        piv = next(r for r in range(c, n) if a[r][c])
-        a[c], a[piv] = a[piv], a[c]
-        inv = pow(a[c][c], -1, p)
-        a[c] = [v * inv % p for v in a[c]]
-        for r in range(n):
-            if r != c and a[r][c]:
-                f = a[r][c]
-                a[r] = [(v - f * u) % p for v, u in zip(a[r], a[c])]
-    return [row[n:] for row in a]
-
-
-def _directed_state(perm):
-    """The state that gives K5's last MDS product, whose rows are the
-    output, its largest inputs: after the last round's keys and S-box every
-    element's Montgomery word is p - 1 (found by running the rounds
-    backwards). Returns (its field elements, the largest row sum T that
-    product then meets, over the most a row summed whole and reduced once
-    could take). `F1c::redc` reads 2 NW words of T and subtracts p at most
-    twice, and the row's final addition once more, so such a row is exact
-    only while T < min(R^2, 3 p R); `mac_group`'s groups keep every T below
-    K p^2 < 2 p R whatever the width."""
-    from openzl_tpu_torch.fields import limb
-
-    spec, w = perm.spec, perm.width
-    p, R = spec.modulus, 1 << (16 * spec.n_limbs)
-    r_inv, root5 = pow(R, -1, p), pow(5, -1, p - 1)
-    half, rounds = perm.full_rounds // 2, perm.full_rounds + perm.partial_rounds
-    keys = [[int(k) for k in limb.unpack_mont(spec, perm.round_keys[r])] for r in range(rounds)]
-    mds = [[int(v) for v in row] for row in limb.unpack(spec, perm.mds)]
-    mds_inv = _inverse_mod([[v * r_inv % p for v in row] for row in mds], p)
-    x = [(p - 1) * r_inv % p] * w
-    for r in reversed(range(rounds)):
-        full = r < half or r >= half + perm.partial_rounds
-        x = [(pow(v, root5, p) if j == 0 or full else v) - k for j, (v, k) in enumerate(zip(x, keys[r]))]
-        if r:
-            x = [sum(m * v for m, v in zip(row, x)) % p for row in mds_inv]
-    return [v % p for v in x], (p - 1) * max(map(sum, mds)) / min(R * R, 3 * p * R)
-
-
 def phase_widths(all_kernels, device="cuda", log_b: int = 16, check_b: int = 4096, reps: int = 5,
                  seed: int = 9, widths=WIDTHS):
     """Phase 6b. Each (field, kernel, width) of `widths`: the kernel on
@@ -1060,6 +1108,7 @@ def phase_widths(all_kernels, device="cuda", log_b: int = 16, check_b: int = 409
     from openzl_tpu_torch.fields import limb
     from openzl_tpu_torch.fields import spec as fspec
     from openzl_tpu_torch.ops import poseidon2_kernel, poseidon_kernel
+    from openzl_tpu_torch.tools import kernel_probe
 
     dev = torch.device(device)
     gen = torch.Generator().manual_seed(seed)
@@ -1080,7 +1129,7 @@ def phase_widths(all_kernels, device="cuda", log_b: int = 16, check_b: int = 409
             if (field, w) not in states:
                 states[field, w] = _uniform_states(spec, w, B, gen, dev)
             if cls is Poseidon:  # state 3: K5's largest MDS inputs
-                directed, share = _directed_state(perms[field, "Poseidon", w])
+                directed, share = kernel_probe.directed_state(perms[field, "Poseidon", w])
                 states[field, w][:, :, 3] = limb.tensor(limb.pack_mont(spec, directed), dev)
                 log(f"[widths] {field} width {w}: on state 3 K5's last MDS rows meet {share:.3f} of what a row "
                     f"reduced once whole could take ({'more' if share >= 1 else 'less'} than it; "
@@ -1103,6 +1152,7 @@ def phase_widths(all_kernels, device="cuda", log_b: int = 16, check_b: int = 409
                        f"{per_state:.0f} word products per state; plain and check on the first {b})",
                        (B * per_state, 2 * x.numel() * 4), lambda: kern(perm, x),
                        _ptxas_runs(name, w))
+                PERM_RUNS.setdefault((field, w), {})[name] = (ms, (B * per_state, 2 * x.numel() * 4))
 
     # the entry points, launch counters zeroed before and read after
     for k in all_kernels:
@@ -1324,18 +1374,19 @@ def main() -> None:
         fail("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     name, smi = phase_device()
-    ptxas = phase_build()
+    ptxas, latency = phase_build()
 
     import torch
 
     from openzl_tpu_torch.ops import ec_kernel, ntt_kernel, poseidon2_kernel, poseidon_kernel
     from openzl_tpu_torch.proof_systems import BLS12_381
 
-    groth16_kernels = [ntt_kernel.K1, ntt_kernel.K2, ec_kernel.K3, ec_kernel.K4, ec_kernel.K9, ec_kernel.K3S]
+    groth16_kernels = [ntt_kernel.K1, ntt_kernel.K1P, ntt_kernel.K2, ec_kernel.K3, ec_kernel.K4, ec_kernel.K9,
+                       ec_kernel.K3S]
     hash_kernels = [poseidon_kernel.K5, poseidon_kernel.K6, poseidon2_kernel.K7]
     kzg_kernels = [ntt_kernel.K8]
-    kernels = [*groth16_kernels[:4], *hash_kernels, ntt_kernel.K8, ec_kernel.K9, ec_kernel.K3S]
-    results = phase_kernels()
+    kernels = [*groth16_kernels[:5], *hash_kernels, ntt_kernel.K8, ec_kernel.K9, ec_kernel.K3S]
+    results = phase_kernels(latency=latency)
     bls = phase_kernels_bls()  # the BLS12-381 (24-limb) runs of K3, K4, K9 and the scan
     phase_roundtrip()
     launches, _, b2_fold, scans = phase_slice(args.chain, args.proofs, kernels, groth16_kernels)
@@ -1384,10 +1435,23 @@ def main() -> None:
         log(f"[bound] {label} on {shape}: {moved} bytes, bound {bound((0, moved))[0]:.6f} ms (bytes)")
     for runs in (results, bls, width_results):
         for kname, entries in runs.items():
-            for _, ms, _, work, shape, _, _ in entries:
+            for _, ms, _, work, shape, dms, _ in entries:
                 b_ms, b_by = bound(work)
+                lat = "" if len(work) < 3 or work[2] is None else \
+                    f"; latency bound {work[2]:.4f} ms, {work[2] / ms:.1%} of the kernel time" + (
+                        f", {work[2] / dms:.1%} of its device time" if dms else "")
                 log(f"[bound] {kname} {shape}: bound {b_ms:.4f} ms ({b_by}), kernel {ms:.4f} ms, "
-                    f"{b_ms / ms:.1%} of the bound")
+                    f"{b_ms / ms:.1%} of the bound{lat}")
+    from openzl_tpu_torch.utils import profile as prof
+
+    log(f"[profile] device times: {prof.DEVICE_MS_PROFILES['taken']} profiles, "
+        f"{prof.DEVICE_MS_PROFILES['lost']} of them lost a kernel record (profiled again)")
+    for (field, w), runs in PERM_RUNS.items():
+        if {"poseidon_permute", "poseidon_permute_opt"} <= runs.keys():
+            (k5, work5), (k6, work6) = runs["poseidon_permute"], runs["poseidon_permute_opt"]
+            b5, b6 = bound(work5)[0], bound(work6)[0]
+            log(f"[bound] K6 against K5, {field} width {w}: K6 {k6:.4f} ms, {b6 / k6:.1%} of its bound "
+                f"{b6:.4f} ms; K5 {k5:.4f} ms, {b5 / k5:.1%} of {b5:.4f} ms; K6 / K5 {k6 / k5:.3f}")
 
     def ptx(key):
         """{kernel: {"registers": R, "spill_bytes": S}} of a run's ptxas key(s)."""
@@ -1397,8 +1461,11 @@ def main() -> None:
     def run_row(run):
         err, ms, pms, work, shape, dms, key = run
         b_ms, b_by = bound(work)
-        return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
-                "bound_ms": b_ms, "bound_by": b_by, "ptxas": ptx(key)}
+        row = {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
+               "bound_ms": b_ms, "bound_by": b_by, "ptxas": ptx(key)}
+        if len(work) > 2:
+            row["latency_bound_ms"] = work[2]
+        return row
 
     rows = []
     for k in kernels:
@@ -1423,6 +1490,15 @@ def main() -> None:
             row["bls12_381"] = {"launches": bls_launches[k.name], "kzg_launches": bls_kzg_launches[k.name],
                                 "runs": [run_row(r) for r in bls[k.name]]}
             row["bn254_ptxas"] = ptx(runs[0][6])
+        elif runs[0][6] is not None:
+            row["ptxas"] = ptx(runs[0][6])
+        if k.name in ("mont_mul", "mont_pow"):
+            # each run (2^17 and narrow products; every exponentiation case)
+            # with its device time and, for the exponentiation, its latency
+            # bound
+            row["runs"] = [run_row(r) for r in runs]
+            if len(runs[0][3]) > 2:
+                row["latency_bound_ms"] = runs[0][3][2]
         if k.name in width_results:
             # phase 6b: each other state width's run, and the launches by
             # state width through the entry points

@@ -277,7 +277,8 @@ OZL_HD void mac_row(uint32_t* t, const uint32_t* a, uint32_t b, Carry& cc) {
 }
 
 // F1 with the Montgomery product and square on carry chains, the square
-// and the product-sum reduced once (K3-K5 and K9; K1, K2 and K6-K8 keep F1).
+// and the product-sum reduced once (K1's exponentiation, K3-K6 and K9; K1's
+// product, K2, K7 and K8 keep F1).
 // Needs p < 2^(32 NW - 1) - 2^(32 NW - 33) (top word below 0x7FFFFFFF:
 // BN254 Fr and Fq, BLS12-381 Fr), so that a CIOS step fits NW + 1 words.
 template <int NW>
@@ -441,6 +442,22 @@ struct F1c : F1<NW> {
     }
   }
 };
+
+// a^e (Montgomery form, over F1 or F1c) for e given as little-endian 32-bit
+// words of bit length `bits` (0 for e = 0), MSB first: one x a for the top
+// bit (as the plain chain's first square and product of one give), then a
+// square per bit and a product by a where the bit is set; the Montgomery
+// one for e = 0. K1's exponentiation (ntt_kernel.cu).
+template <class F, int NW>
+OZL_HD Fp<NW> pow_bits(const F& Fd, const Fp<NW>& a, const uint32_t* e, int bits, const Fp<NW>& one) {
+  Fp<NW> acc = bits > 0 ? Fd.mul(one, a) : one;
+#pragma unroll 1
+  for (int k = bits - 2; k >= 0; --k) {
+    acc = Fd.sqr(acc);
+    if ((e[k >> 5] >> (k & 31)) & 1u) acc = Fd.mul(acc, a);
+  }
+  return acc;
+}
 
 // ---------------------------------------------------------------------------
 // quadratic extension c0 + c1 u, u^2 = beta = -k (k = 1 for BN254 and

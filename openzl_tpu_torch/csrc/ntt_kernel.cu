@@ -1,15 +1,37 @@
-// K1: elementwise Montgomery product, K2: batched M-point DIF NTT, and
-// K8: one radix-2 butterfly stage.
+// K1: elementwise Montgomery product and, through the same field code, the
+// Montgomery exponentiation; K2: batched M-point DIF NTT; K8: one radix-2
+// butterfly stage.
 //
 // K1 replaces openzl_tpu/ops/ntt_kernel.py `_make_mul_kernel` (:56, through
 // `mont_mul()` :259 and `mont_scale()` :268). One thread per element; the
 // sixteen-bit limbs of a column are read by neighbouring threads from
 // neighbouring addresses (limb-planar layout), so every load and store is
-// coalesced. Bound on the card: integer multiply throughput (NW^2 64-bit
-// multiply-adds for the product and as many for the reduction per element)
-// with 3 x 4 n_limbs bytes of traffic per element; the design keeps the
-// whole product in registers and touches device memory once per operand.
-// Scale mode reads one broadcast element (b strides 0 over elements).
+// coalesced. Bound on the card: bytes (3 x 4 n_limbs bytes per element
+// against one product's NW^2 + NW^2 + NW/2 word products; at 2^17 BN254
+// elements the bytes take longer); the design keeps the whole product in
+// registers and touches device memory once per operand. Scale mode reads
+// one broadcast element (b strides 0 over elements). The product runs on
+// F1, whose 2^17-element launch took 0.0070 ms of device time on the H100
+// against F1c's 0.0080 (tools/kernel_probe.py part k1; PERF.md);
+// -DOZL_K1_MUL_F1C=1 builds it on F1c (field.cuh, carry chains) where p's
+// top word is below F1c's bound.
+//
+// K1's exponentiation (`ozl_mont_pow`) replaces the chain of K1 launches
+// that `limb.mont_pow` ran, one launch per square or product, whose JAX
+// counterpart is one lax.scan (openzl_tpu/fields/limb.py `mont_pow` :308):
+// out = a^e for an exponent given as 32-bit words and its bit length (any
+// Python int: p - 2 for a Fermat inverse, 0, 1, ...), by the same MSB-first
+// square and multiply, the Montgomery one for e = 0. One thread per
+// element holds the whole chain in registers; the exponent's bits are the
+// same for every thread, so the branch on a bit is uniform. Its callers
+// invert one to a few elements (a batch inversion's total, an Fq2 norm),
+// so a launch lasts one thread's chain of NW-word products: latency, not
+// throughput, bounds it, and the design takes a launch of some 380 (BN254)
+// to 570 (BLS12-381 Fq) products down to one. F1c's product and dedicated
+// square where p's top word allows, F1 otherwise (-DOZL_K1_POW_F1C=0: F1
+// everywhere): by p - 2, one element took 0.1917 ms of device time on
+// F1c against F1's 0.2297 over BN254 Fq, 0.6852 against 0.7986 over
+// BLS12-381 Fq (kernel_probe part k1).
 //
 // K2 replaces `_make_small_ntt_kernel` (:160, through `small_ntt()` :200):
 // all log2(M) decimation-in-frequency stages of an M-point transform along
@@ -45,15 +67,55 @@
 
 namespace {
 
-template <int NW>
+#ifndef OZL_K1_MUL_F1C
+#define OZL_K1_MUL_F1C 0
+#endif
+#ifndef OZL_K1_POW_F1C
+#define OZL_K1_POW_F1C 1
+#endif
+
+// p's top word below this: F1c's carry chains hold (field.cuh)
+constexpr uint32_t kF1cTop = 0x7FFFFFFFu;
+
+template <class F, int NW>
+OZL_HD F make_field(const FieldParams<NW>& f) {
+  F Fd;
+  Fd.f = f;
+  return Fd;
+}
+
+template <class F, int NW>
 __global__ void mont_mul_kernel(int32_t* out, const int32_t* a, const int32_t* b, int64_t N,
                                 int64_t b_ls, int64_t b_es, FieldParams<NW> f) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  F1<NW> F{f};
+  const F Fd = make_field<F, NW>(f);
   Fp<NW> x = load_fp<NW>(a, N, i);
   Fp<NW> y = load_fp<NW>(b, b_ls, i * b_es);
-  store_fp<NW>(out, N, i, F.mul(x, y));
+  store_fp<NW>(out, N, i, Fd.mul(x, y));
+}
+
+template <class F, int NW>
+__global__ void mont_pow_kernel(int32_t* out, const int32_t* a, int64_t N, const uint32_t* e,
+                                int bits, FieldParams<NW> f, Fp<NW> one) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  const F Fd = make_field<F, NW>(f);
+  store_fp<NW>(out, N, i, pow_bits(Fd, load_fp<NW>(a, N, i), e, bits, one));
+}
+
+// F1c where the build allows it (`use`) and p's top word is below its
+// bound, F1 otherwise (and for one-word fields, which F1c does not take)
+template <int NW>
+bool carry_chains(bool use, const uint32_t* p) {
+  return NW >= 2 && use && p[NW - 1] < kF1cTop;
+}
+
+template <class F, int NW>
+void start_mul(unsigned blocks, int threads, cudaStream_t st, void* out, const void* a,
+               const void* b, int64_t N, int64_t b_ls, int64_t b_es, const FieldParams<NW>& f) {
+  mont_mul_kernel<F, NW><<<blocks, threads, 0, st>>>((int32_t*)out, (const int32_t*)a,
+                                                     (const int32_t*)b, N, b_ls, b_es, f);
 }
 
 template <int NW>
@@ -61,10 +123,43 @@ int launch_mont_mul(void* out, const void* a, const void* b, int64_t N, int64_t 
                     int64_t b_es, const uint32_t* p, uint32_t n0, cudaStream_t st) {
   const int threads = 256;
   int64_t blocks = (N + threads - 1) / threads;
-  if (blocks > 0)
-    mont_mul_kernel<NW><<<(unsigned)blocks, threads, 0, st>>>(
-        (int32_t*)out, (const int32_t*)a, (const int32_t*)b, N, b_ls, b_es,
-        make_params<NW>(p, n0));
+  if (blocks <= 0) return (int)cudaGetLastError();
+  const FieldParams<NW> f = make_params<NW>(p, n0);
+  if constexpr (NW >= 2) {
+    if (carry_chains<NW>(OZL_K1_MUL_F1C, p)) {
+      start_mul<F1c<NW>, NW>((unsigned)blocks, threads, st, out, a, b, N, b_ls, b_es, f);
+      return (int)cudaGetLastError();
+    }
+  }
+  start_mul<F1<NW>, NW>((unsigned)blocks, threads, st, out, a, b, N, b_ls, b_es, f);
+  return (int)cudaGetLastError();
+}
+
+template <class F, int NW>
+void start_pow(unsigned blocks, int threads, cudaStream_t st, void* out, const void* a, int64_t N,
+               const void* e, int bits, const FieldParams<NW>& f, const Fp<NW>& one) {
+  mont_pow_kernel<F, NW><<<blocks, threads, 0, st>>>((int32_t*)out, (const int32_t*)a, N,
+                                                     (const uint32_t*)e, bits, f, one);
+}
+
+// one thread per element in blocks of 128: a launch of a few elements is
+// one block whatever its size, and 2^10 elements spread over 8 SMs
+template <int NW>
+int launch_mont_pow(void* out, const void* a, int64_t N, const void* e, int bits,
+                    const uint32_t* p, uint32_t n0, const uint32_t* one_words, cudaStream_t st) {
+  const int threads = 128;
+  int64_t blocks = (N + threads - 1) / threads;
+  if (blocks <= 0) return (int)cudaGetLastError();
+  const FieldParams<NW> f = make_params<NW>(p, n0);
+  Fp<NW> one;
+  for (int w = 0; w < NW; ++w) one.w[w] = one_words[w];
+  if constexpr (NW >= 2) {
+    if (carry_chains<NW>(OZL_K1_POW_F1C, p)) {
+      start_pow<F1c<NW>, NW>((unsigned)blocks, threads, st, out, a, N, e, bits, f, one);
+      return (int)cudaGetLastError();
+    }
+  }
+  start_pow<F1<NW>, NW>((unsigned)blocks, threads, st, out, a, N, e, bits, f, one);
   return (int)cudaGetLastError();
 }
 
@@ -224,6 +319,24 @@ extern "C" int ozl_mont_mul(void* out, const void* a, const void* b, int64_t N, 
     case 2: return launch_mont_mul<1>(out, a, b, N, b_ls, b_es, pw, n0, st);
     case 16: return launch_mont_mul<8>(out, a, b, N, b_ls, b_es, pw, n0, st);
     case 24: return launch_mont_mul<12>(out, a, b, N, b_ls, b_es, pw, n0, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out = a^e over N elements of n_limbs limbs; e: device words of the
+// exponent, little-endian, `bits` its bit length (0 for e = 0); one: the
+// Montgomery one R mod p as host words
+extern "C" int ozl_mont_pow(void* out, const void* a, int64_t N, const void* e, int bits,
+                            int n_limbs, const void* p, uint32_t n0, const void* one,
+                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* pw = (const uint32_t*)p;
+  const uint32_t* ow = (const uint32_t*)one;
+  if (bits < 0) return (int)cudaErrorInvalidValue;
+  switch (n_limbs) {
+    case 2: return launch_mont_pow<1>(out, a, N, e, bits, pw, n0, ow, st);
+    case 16: return launch_mont_pow<8>(out, a, N, e, bits, pw, n0, ow, st);
+    case 24: return launch_mont_pow<12>(out, a, N, e, bits, pw, n0, ow, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -36,7 +36,7 @@ OZL_HD Fp<NW> word_fp(const uint32_t* s) {
   return r;
 }
 
-// x^5 as two squarings and a product (over F1, or F1c for K5)
+// x^5 as two squarings and a product (over F1c for K5 and K6, F1 for K7)
 template <class Fd, int NW>
 OZL_HD Fp<NW> pow5(const Fd& F, const Fp<NW>& x) {
   Fp<NW> x2 = F.sqr(x);
@@ -260,31 +260,38 @@ OZL_HD int poseidon_words(int W, int full_rounds, int partial_rounds, int NW) {
   return ((full_rounds + partial_rounds) * W + W * W) * NW;
 }
 
-// y_o = sum_k M(o, k) x_k over F1 with M(o, k) at m[(o so + k sk) NW],
-// for every o: (so, sk) = (W, 1) is the product M x, (1, W) the row vector
-// at left x M
-template <class S, int NW>
-OZL_HD void mat_apply(const F1<NW>& F, const S& x, S& y, const uint32_t* m, int so, int sk) {
-  const int W = x.width();
-#pragma unroll (S::kUnroll)
-  for (int o = 0; o < W; ++o) {
-    Fp<NW> acc = F.mul(x.get(0), word_fp<NW>(m + (size_t)(o * so) * NW));
-#pragma unroll (S::kUnroll)
-    for (int k = 1; k < W; ++k) acc = F.add(acc, F.mul(x.get(k), word_fp<NW>(m + (size_t)(o * so + k * sk) * NW)));
-    y.set(o, acc);
+// x + a b as one Montgomery reduction: redc(a b + x R) = a b R^-1 + x, x R
+// being x's words shifted up by NW. The sum stays below p^2 + p R < 2 p R
+// < R^2 (p < R / 2), which F1c::redc takes: its low half reduces to at most
+// p, the high half is below 2 p, and it subtracts p at most twice (K6's
+// v_rest updates)
+template <int NW>
+OZL_HD Fp<NW> mul_add(const F1c<NW>& F, const Fp<NW>& a, const Fp<NW>& b, const Fp<NW>& x) {
+  uint32_t acc[2 * NW + 1];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    acc[j] = 0;
+    acc[NW + j] = x.w[j];
   }
+  acc[2 * NW] = 0;
+  mac_acc<NW>(acc, a, b);
+  return F.redc(acc);
 }
 
 // K6 rounds on state x (S = Regs or Slot), with y for the dense products,
 // over [initial (W, NW); full keys (R_F - 1, W, NW); partial keys (R_P,
-// NW); pre_sparse (W, W, NW); MDS (W, W, NW); w_hat (R_P, W, NW); v_rest
-// (R_P, W - 1, NW)]. Full round r: S-box, post-S-box keys (none in the
-// last round), M x; the boundary round half - 1 applies pre_sparse as a
-// row vector at left (x M, it is not symmetric) and is followed by every
-// partial round: x_0 = x_0^5 + key, then out_0 = sum_i x_i w_hat_i and
-// out_j = x_j + x_0 v_rest_j. Returns the state that holds the result.
+// NW); pre_sparse transposed (W, W, NW); MDS (W, W, NW); w_hat (R_P, W,
+// NW); v_rest (R_P, W - 1, NW)], on F1c. Full round r: S-box, post-S-box
+// keys (none in the last round), then every output as a row (mds_row:
+// products summed unreduced in groups of `group`, one reduction a group);
+// the boundary round half - 1 takes its rows from pre_sparse, which it
+// applies as a row vector at left (x M: output j is column j, which the
+// host lays out as row j) and is followed by every partial round: x_0 =
+// x_0^5 + key, then out_0 = sum_i x_i w_hat_i as one row and out_j = x_j +
+// x_0 v_rest_j as one reduction each (mul_add). Returns the state that
+// holds the result.
 template <class S, int NW>
-OZL_HD S poseidon_opt_rounds(const F1<NW>& F, S x, S y, const uint32_t* c, int full_rounds,
+OZL_HD S poseidon_opt_rounds(const F1c<NW>& F, S x, S y, int group, const uint32_t* c, int full_rounds,
                              int partial_rounds) {
   const int W = x.width();
   const int half = full_rounds / 2;
@@ -306,21 +313,21 @@ OZL_HD S poseidon_opt_rounds(const F1<NW>& F, S x, S y, const uint32_t* c, int f
       x.set(j, v);
     }
     const bool boundary = r == half - 1;
-    mat_apply<S, NW>(F, x, y, boundary ? pre : mds, boundary ? 1 : W, boundary ? W : 1);
+    const uint32_t* m = boundary ? pre : mds;
+#pragma unroll (S::kUnroll)
+    for (int o = 0; o < W; ++o) y.set(o, mds_row(F, x, m + (size_t)o * W * NW, group));
     const S t = x;
     x = y;
     y = t;
     if (!boundary) continue;
 #pragma unroll 1
     for (int q = 0; q < partial_rounds; ++q) {
-      const uint32_t* wh = w_hat + (size_t)q * W * NW;
       const uint32_t* vr = v_rest + (size_t)q * (W - 1) * NW;
       const Fp<NW> x0 = F.add(pow5(F, x.get(0)), word_fp<NW>(pkeys + (size_t)q * NW));
-      Fp<NW> out0 = F.mul(x0, word_fp<NW>(wh));
+      x.set(0, x0);
+      const Fp<NW> out0 = mds_row(F, x, w_hat + (size_t)q * W * NW, group);
 #pragma unroll (S::kUnroll)
-      for (int i = 1; i < W; ++i) out0 = F.add(out0, F.mul(x.get(i), word_fp<NW>(wh + i * NW)));
-#pragma unroll (S::kUnroll)
-      for (int j = 1; j < W; ++j) x.set(j, F.add(x.get(j), F.mul(x0, word_fp<NW>(vr + (j - 1) * NW))));
+      for (int j = 1; j < W; ++j) x.set(j, mul_add(F, x0, word_fp<NW>(vr + (j - 1) * NW), x.get(j)));
       x.set(0, out0);
     }
   }
@@ -422,19 +429,17 @@ OZL_HD int poseidon2_words(int W, int full_rounds, int partial_rounds, int NW) {
   return (full_rounds * W + partial_rounds) * NW + W;
 }
 
-// K6 and K7 run through permute_kernel at width 3 (K7 also at 2, 4, 8 and
-// 12); K5 has its own (poseidon_kernel.cu). K5 and K6 at the other widths
-// run through slot_kernel.
+// K7 runs through permute_kernel (one instantiation a width, over F1); K5
+// and K6 have their own register kernels at width 3 (poseidon_kernel.cu),
+// and run through slot_kernel at the other widths.
 enum PermKind { kPoseidon = 0, kPoseidonOpt = 1, kPoseidon2 = 2 };
 
 template <int KIND, int W, int NW>
-OZL_HD void run_rounds(const F1<NW>& F, Regs<W, NW>& x, const uint32_t* c, int full_rounds,
+OZL_HD void run_rounds(const FieldParams<NW>& f, Regs<W, NW>& x, const uint32_t* c, int full_rounds,
                        int partial_rounds) {
-  if constexpr (KIND == kPoseidonOpt) {
-    Regs<W, NW> y{};
-    x = poseidon_opt_rounds<Regs<W, NW>, NW>(F, x, y, c, full_rounds, partial_rounds);
-  }
-  if constexpr (KIND == kPoseidon2) poseidon2_rounds<W, NW>(F, x.v, c, full_rounds, partial_rounds);
+  static_assert(KIND == kPoseidon2, "permute_kernel runs K7");
+  const F1<NW> F{f};
+  poseidon2_rounds<W, NW>(F, x.v, c, full_rounds, partial_rounds);
 }
 
 #ifdef __CUDACC__
@@ -449,10 +454,9 @@ __global__ void permute_kernel(int32_t* out, const int32_t* in, const int32_t* c
   __syncthreads();
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const F1<NW> F{f};
   Regs<W, NW> x;
   load_state<W, NW>(x.v, in, B, b);
-  run_rounds<KIND, W, NW>(F, x, sm, full_rounds, partial_rounds);
+  run_rounds<KIND, W, NW>(f, x, sm, full_rounds, partial_rounds);
   store_state<W, NW>(out, B, b, x.v);
 }
 
@@ -477,10 +481,10 @@ int launch_permute(void* out, const void* in, const void* consts, int64_t B, int
   return (int)cudaGetLastError();
 }
 
-// K5 (kPoseidon, over F1c, MDS rows in groups of `group` products) or K6
-// (kPoseidonOpt, over F1) at a run-time width W, one thread per state:
-// dynamic shared memory holds the constants, then the threads' x slots,
-// then their y slots (W NW words each)
+// K5 (kPoseidon) or K6 (kPoseidonOpt), both over F1c with their dense
+// rows in groups of `group` products, at a run-time width W, one thread
+// per state: dynamic shared memory holds the constants, then the threads'
+// x slots, then their y slots (W NW words each)
 template <int KIND, int NW>
 __global__ void __launch_bounds__(128)
     slot_kernel(int32_t* out, const int32_t* in, const int32_t* consts, int64_t B, int W, int group,
@@ -495,14 +499,12 @@ __global__ void __launch_bounds__(128)
   const Slot<NW> y{sm + n_words + W * NW * T + threadIdx.x, T, W};
 #pragma unroll 1
   for (int j = 0; j < W; ++j) x.set(j, load_fp<NW>(in + (int64_t)j * B, (int64_t)W * B, b));
-  if constexpr (KIND == kPoseidon) {
-    F1c<NW> F;
-    F.f = f;
+  F1c<NW> F;
+  F.f = f;
+  if constexpr (KIND == kPoseidon)
     x = poseidon_rounds<Slot<NW>, NW>(F, x, y, group, sm, full_rounds, partial_rounds);
-  } else {
-    const F1<NW> F{f};
-    x = poseidon_opt_rounds<Slot<NW>, NW>(F, x, y, sm, full_rounds, partial_rounds);
-  }
+  else
+    x = poseidon_opt_rounds<Slot<NW>, NW>(F, x, y, group, sm, full_rounds, partial_rounds);
 #pragma unroll 1
   for (int j = 0; j < W; ++j) store_fp<NW>(out + (int64_t)j * B, (int64_t)W * B, b, x.get(j));
 }

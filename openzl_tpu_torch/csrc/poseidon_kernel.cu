@@ -26,21 +26,32 @@
 // Both read and write the (n_limbs, W, B) limb layout of the port and
 // return fully reduced elements, so each is bit-equal to `permute_plain`.
 // The constants (6.2 KB for K5, 11.6 KB for K6 at width 3) are staged in
-// shared memory by each block and read as broadcasts. K6 keeps its first
-// design: one thread per state over F1 (permute_kernel in poseidon.cuh).
+// shared memory by each block and read as broadcasts.
+//
+// K6 runs one thread per state (poseidon_opt_kernel below, the state in
+// registers, at width 3) on K5's arithmetic: F1c, the S-box's dedicated
+// square, and every dense output, M x in the full rounds, the boundary
+// round's x pre_sparse (its columns laid out as rows by the host) and
+// each partial round's w_hat row, as a row of products summed unreduced
+// and reduced once per group (mds_row); each partial round's W - 1
+// updates x_j + x_0 v_rest_j are one reduction each, x_j folded into it
+// (mul_add). Bound on the card: the integer multiply issue of those word
+// products, which the design cuts from one full Montgomery product (and
+// one reduced addition) per matrix entry, as K6 was first written, to one
+// multiply-accumulate per entry and one reduction per row or group.
 //
 // Every other width, 2 and 4 to 17 (arity 1 to 16, the reference's pinned
 // widths 2-6, 9 and 17 and the searched ones between), runs one kernel
 // whose width is a run-time argument (slot_kernel in poseidon.cuh), for K5
 // and for K6, through the same round functions as width 3 (on a `Slot`
-// instead of `Regs`): a thread keeps its state in its slot of shared memory beside
-// the constants (45.7 KB for K5 and 87.0 KB for K6 at width 17) and writes
-// each round's MDS product, one element at a time, into a second slot; the
-// block shrinks from 128 threads where the two exceed 227 KB. Its K5 sums
-// an MDS row unreduced in groups of at most K products with K p < 2 R (10
-// for BN254 Fr, 4 for BLS12-381 Fr: mac_group), one reduction a group, so
-// BLS12-381 Fr rows past width 4 stay exact. No split variant: the Merkle
-// tree, the one caller with narrow batches, hashes at width 3.
+// instead of `Regs`): a thread keeps its state in its slot of shared
+// memory beside the constants (45.7 KB for K5 and 87.0 KB for K6 at width
+// 17) and writes each round's MDS product, one element at a time, into a
+// second slot; the block shrinks from 128 threads where the two exceed
+// 227 KB. Both sum a row unreduced in groups of at most K products with K
+// p < 2 R (10 for BN254 Fr, 4 for BLS12-381 Fr: mac_group), one reduction
+// a group, so BLS12-381 Fr rows past width 4 stay exact. No split variant:
+// the Merkle tree, the one caller with narrow batches, hashes at width 3.
 #include <cuda_runtime.h>
 
 #include "poseidon.cuh"
@@ -68,6 +79,47 @@ __global__ void __launch_bounds__(kThreads)
   load_state<W, NW>(x.v, in, B, b);
   x = poseidon_rounds<Regs<W, NW>, NW>(F, x, y, W, sm, full_rounds, partial_rounds);
   store_state<W, NW>(out, B, b, x.v);
+}
+
+// K6 on registers, with no launch bounds: ptxas gave it 88 registers and
+// no spill; bounds of kThreads and one block an SM gave 138 registers and
+// a slower kernel, six blocks 80 registers and 8 B of spill stores
+// (kernel_probe part k6; PERF.md). -DOZL_K6_MIN_BLOCKS=n builds it
+// with bounds of kThreads and n blocks an SM.
+#ifdef OZL_K6_MIN_BLOCKS
+#define OZL_K6_BOUNDS __launch_bounds__(kThreads, OZL_K6_MIN_BLOCKS)
+#else
+#define OZL_K6_BOUNDS
+#endif
+
+template <int W, int NW>
+__global__ void OZL_K6_BOUNDS
+    poseidon_opt_kernel(int32_t* out, const int32_t* in, const int32_t* consts, int64_t B,
+                        int full_rounds, int partial_rounds, int n_words, FieldParams<NW> f) {
+  extern __shared__ uint32_t sm[];
+  stage_consts(sm, consts, n_words);
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  F1c<NW> F;
+  F.f = f;
+  Regs<W, NW> x, y{};
+  load_state<W, NW>(x.v, in, B, b);
+  x = poseidon_opt_rounds<Regs<W, NW>, NW>(F, x, y, W, sm, full_rounds, partial_rounds);
+  store_state<W, NW>(out, B, b, x.v);
+}
+
+template <int W, int NW>
+int launch_poseidon_opt(void* out, const void* in, const void* consts, int64_t B, int full_rounds,
+                        int partial_rounds, const uint32_t* p, uint32_t n0, cudaStream_t st) {
+  const int n_words = poseidon_opt_words(W, full_rounds, partial_rounds, NW);
+  const size_t smem = sizeof(uint32_t) * (size_t)n_words;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  if (blocks > 0)
+    poseidon_opt_kernel<W, NW><<<(unsigned)blocks, kThreads, smem, st>>>(
+        (int32_t*)out, (const int32_t*)in, (const int32_t*)consts, B, full_rounds, partial_rounds,
+        n_words, make_params<NW>(p, n0));
+  return (int)cudaGetLastError();
 }
 
 // the lane exchange of poseidon_split_lane: groups of kSplit lanes
@@ -126,8 +178,8 @@ int launch_poseidon(void* out, const void* in, const void* consts, int64_t B, in
 }  // namespace
 
 // Built for 16-limb (8-word) fields: K5 and K6 at widths 2 to
-// kMaxWidth, width 3 through its own instantiations, K5 only where the top
-// word of p is below 0x7FFFFFFF (F1c). Anything else is refused with
+// kMaxWidth, width 3 through its own instantiations, where the top word
+// of p is below 0x7FFFFFFF (F1c). Anything else is refused with
 // cudaErrorInvalidValue (the wrapper checks first). `split` picks K5's
 // four-lanes-per-state variant, built for width 3 only.
 constexpr int kMaxWidth = 17;
@@ -149,11 +201,13 @@ extern "C" int ozl_poseidon_permute(void* out, const void* in, const void* const
 extern "C" int ozl_poseidon_permute_opt(void* out, const void* in, const void* consts, int64_t B,
                                         int width, int full_rounds, int partial_rounds,
                                         int n_limbs, const void* p, uint32_t n0, void* stream) {
-  if (width < 2 || width > kMaxWidth || n_limbs != 16) return (int)cudaErrorInvalidValue;
-  const int n_words = poseidon_opt_words(width, full_rounds, partial_rounds, 8);
+  const uint32_t* pw = (const uint32_t*)p;
+  if (width < 2 || width > kMaxWidth || n_limbs != 16 || pw[7] >= 0x7FFFFFFFu)
+    return (int)cudaErrorInvalidValue;
   if (width == 3)
-    return launch_permute<kPoseidonOpt, 3, 8>(out, in, consts, B, full_rounds, partial_rounds, n_words,
-                                              (const uint32_t*)p, n0, (cudaStream_t)stream);
-  return launch_slot<kPoseidonOpt, 8>(out, in, consts, B, width, 0, full_rounds, partial_rounds, n_words,
-                                      (const uint32_t*)p, n0, (cudaStream_t)stream);
+    return launch_poseidon_opt<3, 8>(out, in, consts, B, full_rounds, partial_rounds, pw, n0,
+                                     (cudaStream_t)stream);
+  return launch_slot<kPoseidonOpt, 8>(out, in, consts, B, width, mac_group(pw[7]), full_rounds, partial_rounds,
+                                      poseidon_opt_words(width, full_rounds, partial_rounds, 8), pw, n0,
+                                      (cudaStream_t)stream);
 }

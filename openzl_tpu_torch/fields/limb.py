@@ -7,13 +7,13 @@ uint32 limbs and ``np.asarray(jax_out) == port_out.cpu().numpy()`` is the
 comparison). Work is computed in int64 internally: torch has no unsigned
 32-bit arithmetic on the CPU.
 
-Every function takes the device of its inputs. The Montgomery product goes
-through kernel K1 (`openzl_tpu_torch.ops.ntt_kernel.mont_mul`): on a CUDA
-tensor it launches the CUDA kernel, on a CPU tensor it runs the plain torch
-version. Additions and subtractions are plain torch on either device; their
-carry chains are resolved with a carry-lookahead over limb bit masks rather
-than a limb-by-limb loop, so one modular add is a few dozen elementwise ops
-whatever the limb count.
+Every function takes the device of its inputs. The Montgomery product and
+the exponentiation go through kernel K1 (`openzl_tpu_torch.ops.ntt_kernel`
+`mont_mul`, `mont_pow`): on a CUDA tensor they launch the CUDA kernel, on a
+CPU tensor they run the plain torch version. Additions and subtractions
+are plain torch on either device; their carry chains are resolved with a
+carry-lookahead over limb bit masks rather than a limb-by-limb loop, so one
+modular add is a few dozen elementwise ops whatever the limb count.
 
 Montgomery form: ``x R mod p`` with ``R = 2^(16 n_limbs)``.
 """
@@ -275,16 +275,12 @@ def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 
 def mont_pow(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """a^exponent for a Python-int exponent, MSB-first square and multiply."""
-    one = const(spec, "r", a.ndim, a.device).to(DTYPE).expand(a.shape).contiguous()
-    if exponent == 0:
-        return one
-    acc = one
-    for i in reversed(range(exponent.bit_length())):
-        acc = mont_mul(spec, acc, acc)
-        if (exponent >> i) & 1:
-            acc = mont_mul(spec, acc, a)
-    return acc
+    """a^exponent for a Python-int exponent, MSB-first square and multiply:
+    one launch of K1's exponentiation on a CUDA tensor, the plain chain of
+    products on a CPU tensor (`ntt_kernel.mont_pow`)."""
+    from ..ops import ntt_kernel
+
+    return ntt_kernel.mont_pow(spec, a, exponent)
 
 
 def geom_series_mont(spec: FieldSpec, start: int, base: int, count: int, device=None) -> torch.Tensor:

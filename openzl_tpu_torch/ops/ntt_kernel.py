@@ -1,4 +1,5 @@
-"""Kernels K1 (elementwise Montgomery product), K2 (batched small NTT) and
+"""Kernels K1 (elementwise Montgomery product, and the Montgomery
+exponentiation through the same field code), K2 (batched small NTT) and
 K8 (radix-2 butterfly stage).
 
 Port of `openzl_tpu/ops/ntt_kernel.py`. The CUDA sources are
@@ -24,6 +25,11 @@ K1 = build.KernelInfo(
     name="mont_mul",
     source="openzl_tpu_torch/csrc/ntt_kernel.cu",
     replaces="openzl_tpu/ops/ntt_kernel.py:56",
+)
+K1P = build.KernelInfo(
+    name="mont_pow",
+    source="openzl_tpu_torch/csrc/ntt_kernel.cu",
+    replaces="openzl_tpu/fields/limb.py:308",
 )
 K2 = build.KernelInfo(
     name="small_ntt",
@@ -166,6 +172,65 @@ def mont_mul_bcast(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
         return mont_scale(spec, b.contiguous(), a)
     a, b = torch.broadcast_tensors(a, b)
     return mont_mul(spec, a.contiguous(), b.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# K1's exponentiation: a^e in one launch
+# ---------------------------------------------------------------------------
+
+
+def mont_pow_plain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """Plain torch a^exponent in Montgomery form: MSB-first square and
+    multiply over `mont_mul_plain`, starting from the Montgomery one (the
+    result for exponent 0)."""
+    if exponent < 0:
+        raise ValueError(f"mont_pow takes a non-negative exponent, not {exponent}")
+    one = limb.const(spec, "r", a.ndim, a.device).to(limb.DTYPE).expand(a.shape).contiguous()
+    acc = one
+    for i in reversed(range(exponent.bit_length())):
+        acc = mont_mul_plain(spec, acc, acc)
+        if (exponent >> i) & 1:
+            acc = mont_mul_plain(spec, acc, a)
+    return acc
+
+
+@functools.lru_cache(maxsize=64)
+def _exponent_words(exponent: int, device: torch.device) -> torch.Tensor:
+    """The exponent as little-endian 32-bit words (int32 bits) on `device`,
+    at least one word."""
+    n = max(1, -(-exponent.bit_length() // 32))
+    w = np.array([(exponent >> (32 * i)) & 0xFFFFFFFF for i in range(n)], dtype=np.uint32)
+    return torch.as_tensor(w.view(np.int32).copy(), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_words(spec: FieldSpec) -> np.ndarray:
+    """The Montgomery one, R mod p, as little-endian uint32 words."""
+    return np.array([(spec.R >> (32 * i)) & 0xFFFFFFFF for i in range(spec.n_limbs // 2)], dtype=np.uint32)
+
+
+def mont_pow(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent in Montgomery form for a Python-int exponent, elementwise
+    over a (n_limbs, *batch): one K1 launch for the whole chain on the
+    card, the plain chain on the CPU. Exponent 0 gives the Montgomery one;
+    0 maps to 0 for exponent > 0."""
+    if exponent < 0:
+        raise ValueError(f"mont_pow takes a non-negative exponent, not {exponent}")
+    if device_kind(a) == "cpu":
+        return mont_pow_plain(spec, a, exponent)
+    a = a.contiguous()
+    _check_cuda(spec, a)
+    words, n0 = word_consts(spec)
+    one = _one_words(spec)
+    out = torch.empty_like(a)
+    N = a[0].numel()
+    code = build.lib().ozl_mont_pow(
+        out.data_ptr(), a.data_ptr(), N, _exponent_words(exponent, a.device).data_ptr(),
+        exponent.bit_length(), spec.n_limbs, words.ctypes.data, n0, one.ctypes.data, build.stream_ptr(a),
+    )
+    build.check(code, "K1 mont_pow")
+    K1P.count(N, spec.n_limbs)
+    return out
 
 
 # ---------------------------------------------------------------------------

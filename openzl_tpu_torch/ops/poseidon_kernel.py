@@ -188,13 +188,15 @@ def _classic_words(perm, device) -> torch.Tensor:
 
 def _optimized_words(perm, device) -> torch.Tensor:
     """[initial (w, NW); full keys (R_F - 1, w, NW); partial keys (R_P, NW);
-    pre-sparse (w, w, NW); MDS (w, w, NW); w_hat (R_P, w, NW); v_rest
-    (R_P, w - 1, NW)] as words."""
+    pre-sparse transposed (w, w, NW); MDS (w, w, NW); w_hat (R_P, w, NW);
+    v_rest (R_P, w - 1, NW)] as words. The kernel applies pre-sparse at
+    left (out_j = sum_i x_i M[i][j]): its row j here is column j of the
+    matrix, so that every product the kernel runs is a row."""
     return perm.tensors("k6", device, lambda: words_buffer([
         words(perm.opt_initial, 0),
         words(np.moveaxis(perm.opt_full_keys, 1, 2), 2),
         words(perm.opt_partial_keys, 1),
-        words(np.moveaxis(perm.opt_pre_sparse, 0, 2), 2),
+        words(np.moveaxis(perm.opt_pre_sparse, 0, 2).swapaxes(0, 1), 2),
         words(np.moveaxis(perm.mds, 0, 2), 2),
         words(np.moveaxis(perm.opt_w_hat, 1, 2), 2),
         words(np.moveaxis(perm.opt_v_rest, 1, 2), 2),

@@ -1,10 +1,20 @@
 // Microbenchmark of the kernels' field arithmetic on the card: a chain of
-// one operation (F1, the 64-bit C arithmetic of K1-K4 and K6-K8, against
-// F1c, the carry-chain arithmetic of K5 and K9) on one warp (latency) and on
-// 132 x 16 blocks of 128 threads (throughput), one G1 mixed add (K9's step)
-// the same way, and K5's split rounds at 32, 64 and 128 threads a block.
-// BN254 Fq, random data in [0, 2^252). Built and run by kernel_probe.py.
+// one operation (F1, the 64-bit C arithmetic of K2, K7 and K8, against
+// F1c, the carry-chain arithmetic of K1's exponentiation, K3-K6 and K9) on
+// one warp (latency) and on 132 x 16 blocks of 128 threads (throughput),
+// one G1 mixed add (K9's step) the same way, and K5's split rounds at 32,
+// 64 and 128 threads a block. BN254 Fq, random data in [0, 2^252). Built
+// and run by kernel_probe.py.
+//
+//   field_microbench                         everything above
+//   field_microbench latency NW n0 p_0 ...   the latency of F1's and F1c's
+//       product and square on one warp over the NW-word (8 or 12) field
+//       of modulus words p_0 (lowest) ... p_{NW-1} and n0 = -p^-1 mod 2^32
+//       (hexadecimal), one line each: "[latency] NW=<NW> <field> <op>:
+//       <ns> ns" (the bound of K1's exponentiation chain)
 #include <cstdio>
+#include <cstdlib>
+#include <cstring>
 #include <vector>
 
 #include <cuda_runtime.h>
@@ -18,17 +28,18 @@ constexpr uint32_t kP[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
                             0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
 constexpr uint32_t kN0 = 0xe4866389u;
 
-__device__ Fp<8> seed(uint32_t s) {
-  Fp<8> x;
-  for (int i = 0; i < 8; ++i) x.w[i] = (s * 2654435761u + i * 40503u) & 0x0fffffffu;
+template <int NW = 8>
+__device__ Fp<NW> seed(uint32_t s) {
+  Fp<NW> x;
+  for (int i = 0; i < NW; ++i) x.w[i] = (s * 2654435761u + i * 40503u) & 0x0fffffffu;
   return x;
 }
 
-template <class F, int OP>
-__global__ void op_chain(uint32_t* out, FieldParams<8> f, int iters) {
+template <class F, int OP, int NW = 8>
+__global__ void op_chain(uint32_t* out, FieldParams<NW> f, int iters) {
   F Fd;
   Fd.f = f;
-  Fp<8> x = seed(threadIdx.x), y = seed(blockIdx.x + 7);
+  Fp<NW> x = seed<NW>(threadIdx.x), y = seed<NW>(blockIdx.x + 7);
 #pragma unroll 1
   for (int i = 0; i < iters; ++i) {
     if (OP == 0) x = Fd.mul(x, y);
@@ -36,7 +47,7 @@ __global__ void op_chain(uint32_t* out, FieldParams<8> f, int iters) {
     if (OP == 2) x = Fd.add(x, y);
     if (OP == 3) x = Fd.sub(x, y);
   }
-  out[blockIdx.x * blockDim.x + threadIdx.x] = x.w[0] ^ x.w[7];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = x.w[0] ^ x.w[NW - 1];
 }
 
 template <class F>
@@ -116,11 +127,40 @@ void madd_row(const char* field, uint32_t* out, FieldParams<8> f) {
          "(%.4f ns per madd over the card)\n", field, lat, w12, w16, w16 / (132.0f * 512));
 }
 
+// ns per operation of a chain of 2000 on one warp
+template <class F, int OP, int NW>
+void latency_row(int nw, const char* field, const char* op, uint32_t* out, FieldParams<NW> f) {
+  int iters = 2000;
+  void* args[] = {&out, &f, &iters};
+  const float lat = run(op_chain<F, OP, NW>, 1, 32, 0, args) * 1e6f / iters;
+  printf("[latency] NW=%d %s %s: %.2f ns\n", nw, field, op, lat);
+}
+
+template <int NW>
+int latency(uint32_t* out, char** words) {
+  uint32_t p[NW];
+  const uint32_t n0 = (uint32_t)strtoul(words[0], nullptr, 16);
+  for (int i = 0; i < NW; ++i) p[i] = (uint32_t)strtoul(words[1 + i], nullptr, 16);
+  const FieldParams<NW> f = make_params<NW>(p, n0);
+  latency_row<F1<NW>, 0, NW>(NW, "F1", "mul", out, f);
+  latency_row<F1<NW>, 1, NW>(NW, "F1", "sqr", out, f);
+  latency_row<F1c<NW>, 0, NW>(NW, "F1c", "mul", out, f);
+  latency_row<F1c<NW>, 1, NW>(NW, "F1c", "sqr", out, f);
+  return 0;
+}
+
 }  // namespace
 
-int main() {
+int main(int argc, char** argv) {
   uint32_t* out;
   cudaMalloc(&out, 1 << 24);
+  if (argc > 1 && !strcmp(argv[1], "latency")) {
+    const int nw = argc > 2 ? atoi(argv[2]) : 0;
+    if (nw == 8 && argc == 4 + 8) return latency<8>(out, argv + 3);
+    if (nw == 12 && argc == 4 + 12) return latency<12>(out, argv + 3);
+    fprintf(stderr, "usage: field_microbench latency 8|12 n0 p_0 ... p_{NW-1}\n");
+    return 2;
+  }
   const FieldParams<8> f = make_params<8>(kP, kN0);
   op_row<F1<8>, 0>("F1 ", "mul", out, f);
   op_row<F1c<8>, 0>("F1c", "mul", out, f);
@@ -132,7 +172,7 @@ int main() {
   op_row<F1c<8>, 3>("F1c", "sub", out, f);
   madd_row<F1<8>>("F1 ", out, f);
   madd_row<F1c<8>>("F1c", out, f);
-  int n_words = poseidon_words<3>(8, 55, 8);
+  int n_words = poseidon_words(3, 8, 55, 8);
   std::vector<uint32_t> c(n_words);
   for (int i = 0; i < n_words; ++i) c[i] = (i * 2654435761u) & 0x0fffffffu;
   uint32_t* dc;

@@ -2,12 +2,28 @@
 
     python3 -m openzl_tpu_torch.tools.kernel_probe [part ...]
 
-Parts (all by default): microbench, k5, k9, k3, scan. Prints, on the card
-it runs on:
+Parts (all by default): microbench, k1, k5, k9, k3, scan. Prints, on the
+card it runs on:
   * `field_microbench.cu` (built here with nvcc): latency and throughput of
     the F1 and F1c field operations and of one G1 mixed add, and K5's
     split rounds at 32, 64 and 128 threads a block; then the instruction
-    mix of each of its kernels (`cuobjdump -sass`);
+    mix of each of its kernels (`cuobjdump -sass`); then the latency of
+    one F1 and one F1c product and square at 16 and 24 limbs
+    (`product_latency`, which `chip_smoke.py` also runs for the bound of
+    K1's exponentiation chain);
+  * K1 from builds of `csrc/ntt_kernel.cu` with its product and its
+    exponentiation on F1c or F1 (its -D options; `K1_BUILDS`): device ms per launch of the product at 2^17 elements (BN254
+    Fr, BLS12-381 Fq, and the scale) and at 1 and 4 elements, and of the
+    exponentiation by p - 2 at 1 and 2^10 elements, each build held
+    against the shipped one and timed twice, in turns;
+  * K6 from builds of `csrc/poseidon_kernel.cu` with launch bounds
+    (`-DOZL_K6_MIN_BLOCKS`, `K6_MIN_BLOCKS`): device ms per launch at 2^16
+    states of width 3 over BN254 Fr and BLS12-381 Fr, in turns, each held
+    against the shipped build;
+  * torch.profiler's kernel records (`prof`): after a few hundred launches
+    and profiles, profiles of ten K5 launches with the profiler held open
+    0 and `PROFILE_PAD_MS` ms on either side of the call, in turns: how
+    many of the ten records each kept;
   * K5's two variants through the wrapper over batch sizes around the
     switch (`poseidon_kernel.SPLIT_MAX_B`);
   * K9 on the G1 fold of a 2^16-point KZG commit and a G2 fold of 120,323
@@ -62,7 +78,16 @@ FOLD_BOUNDS = [(128, 4, 2), (128, 3, 3), (64, 8, 4), (64, 6, 4), (32, 16, 8), (3
 EC_BUILDS = [(2, 1, "F1c"), (3, 2, "F1c"), (4, 2, "F1c"), (2, 1, "F1")]
 #: bounds of the lifted scan's narrow levels swept (`ec_kernel.SCAN_NARROW`)
 SCAN_NARROWS = [0, 4096, 16384, 32768]
-PARTS = ("microbench", "k5", "k9", "k3", "scan")
+#: K1 builds of ntt_kernel.cu: (name, the product on F1c, the
+#: exponentiation on F1c), passed as -D options; the first is what it ships
+K1_BUILDS = [("product F1, exponentiation F1c", 0, 1), ("F1c", 1, 1), ("F1", 0, 0)]
+#: ms the `prof` part holds the profiler open on either side of the call
+PROFILE_PAD_MS = 50.0
+#: K6 builds of poseidon_kernel.cu: launch bounds of 128 threads and this
+#: many blocks per SM, passed as -DOZL_K6_MIN_BLOCKS; None, no bounds, is
+#: what it ships
+K6_MIN_BLOCKS = [None, 1, 6, 7, 8]
+PARTS = ("microbench", "k1", "k6", "prof", "k5", "k9", "k3", "scan")
 DIRECT_SRC = """template <class T>
 struct DirectRead {
   static constexpr int PW = 2 * (int)(sizeof(T) / sizeof(uint32_t));
@@ -133,9 +158,10 @@ def _fold_sources() -> dict:
 
 
 def _start_builds(parts):
-    """Start nvcc for the microbenchmark, every K9 build and every K3 / K4
-    build that `parts` needs; returns the processes by name (K3 / K4 builds
-    under "ec: <name>") with their outputs."""
+    """Start nvcc for the microbenchmark and every K1, K6, K9 and K3 / K4
+    build that `parts` needs; returns the processes by name (the K1, K6
+    and K3 / K4 builds under "k1: <name>", "k6: <name>", "k3: <name>")
+    with their outputs."""
     nvcc = build._nvcc()
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -144,9 +170,20 @@ def _start_builds(parts):
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
 
     if "microbench" in parts:
-        exe = OUT / "field_microbench"
-        start("microbench", exe, [nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(exe),
-                                  str(HERE / "field_microbench.cu")])
+        procs["microbench"] = start_microbench()
+    if "k1" in parts:
+        for i, (name, mul, pw) in enumerate(K1_BUILDS):
+            so = OUT / f"k1_{i}.so"
+            start(f"k1: {name}", so, [nvcc, *build.NVCC_FLAGS, f"-DOZL_K1_MUL_F1C={mul}", f"-DOZL_K1_POW_F1C={pw}",
+                                      "-I", str(build.CSRC), "-shared", "-o", str(so),
+                                      str(build.CSRC / "ntt_kernel.cu")])
+    if "k6" in parts:
+        for blocks in K6_MIN_BLOCKS:
+            so = OUT / f"k6_{blocks}.so"
+            flags = [] if blocks is None else [f"-DOZL_K6_MIN_BLOCKS={blocks}"]
+            start(f"k6: {'no launch bounds' if blocks is None else f'{blocks} blocks per SM'}", so,
+                  [nvcc, *build.NVCC_FLAGS, *flags, "-I", str(build.CSRC), "-shared", "-o", str(so),
+                   str(build.CSRC / "poseidon_kernel.cu")])
     if "k9" in parts:
         for i, (name, (fold, tmpl, ec)) in enumerate(_fold_sources().items()):
             d = OUT / f"fold_{i}"
@@ -162,10 +199,36 @@ def _start_builds(parts):
             so = OUT / f"ec_{i}.so"
             flags = [f"-DOZL_EC_MIN_BLOCKS_G1={g1}", f"-DOZL_EC_MIN_BLOCKS_G2={g2}", f"-DOZL_EC_BASE={field}",
                      "-DOZL_NO_W12"]
-            start(f"ec: {field}, {g1} / {g2} blocks per SM", so,
+            start(f"k3: {field}, {g1} / {g2} blocks per SM", so,
                   [nvcc, *build.NVCC_FLAGS, *flags, "-I", str(build.CSRC), "-shared", "-o", str(so),
                    str(build.CSRC / "ec_kernel.cu")])
     return procs
+
+
+def start_microbench():
+    """Start nvcc for `field_microbench.cu`; returns (executable, process)."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    exe = OUT / "field_microbench"
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(exe), str(HERE / "field_microbench.cu")]
+    return exe, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def product_latency(exe: pathlib.Path, specs=None) -> dict:
+    """{(n_limbs, field, op): ns} on one warp of the card: a chain of 2000
+    F1 / F1c ("F1", "F1c") products and squares ("mul", "sqr") over each
+    of `specs` (BN254 Fq and BLS12-381 Fq by default: 16 and 24 limbs),
+    from `field_microbench latency`."""
+    from ..fields.spec import BLS12_381_FQ, BN254_FQ
+    from ..ops.ntt_kernel import word_consts
+
+    out = {}
+    for spec in specs or (BN254_FQ, BLS12_381_FQ):
+        words, n0 = word_consts(spec)
+        args = [str(exe), "latency", str(len(words)), f"{n0:x}", *(f"{int(w):x}" for w in words)]
+        text = subprocess.run(args, capture_output=True, text=True, check=True).stdout
+        for field, op, ns in re.findall(r"\[latency\] NW=\d+ (\w+) (\w+): ([\d.]+) ns", text):
+            out[spec.n_limbs, field, op] = float(ns)
+    return out
 
 
 def _finish(proc, name: str) -> str:
@@ -178,6 +241,8 @@ def _finish(proc, name: str) -> str:
 def microbench(exe: pathlib.Path, report: str) -> None:
     log(f"[build] field_microbench (registers, spill bytes): {_ptxas(report)}")
     log(subprocess.run([str(exe)], capture_output=True, text=True, check=True).stdout.rstrip())
+    for (n, field, op), ns in product_latency(exe).items():
+        log(f"[latency] {n} limbs {field} {op}: {ns:.2f} ns on one warp")
     cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(exe)], capture_output=True, text=True, check=True).stdout
     for fn in re.split(r"\n\s+Function : ", sass)[1:]:
@@ -188,6 +253,116 @@ def microbench(exe: pathlib.Path, report: str) -> None:
         top = sorted(mix.items(), key=lambda kv: -kv[1])[:5]
         log(f"[sass] {fn.split(chr(10), 1)[0][:70]}: {len(ops)} instructions; "
             + ", ".join(f"{k} {v}" for k, v in top))
+
+
+def _builds_in_turns(procs, part: str, entries, cases, reps: int) -> None:
+    """Each build of `procs` named "<part>: <name>": its `entries` in place
+    of the shipped library's, every case of `cases` ((name, fn)) held
+    against the shipped build's result and timed by device ms per call
+    over `reps` calls, twice, in turns (builds in order, then in reverse),
+    so that a drift of the card's clock shows; one line per build."""
+    want = [fn() for _, fn in cases]
+    main = build.lib()
+    libs = {}
+    for name, (so, proc) in procs.items():
+        if not name.startswith(f"{part}: "):
+            continue
+        regs = _ptxas(_finish(proc, name))
+        lib = ctypes.CDLL(str(so))
+        fns = {}
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = build._SIGNATURES[entry], ctypes.c_int
+            fns[entry] = fn
+        libs[name[len(part) + 2:]] = (regs, fns)
+
+    def same(a, b):
+        return torch.equal(a, b) if isinstance(a, torch.Tensor) else all(map(torch.equal, a, b))
+
+    times = {name: {case: [] for case, _ in cases} for name in libs}
+    try:
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                build.lib = lambda fns=libs[name][1]: _With(main, **fns)
+                for (case, fn), w in zip(cases, want):
+                    if not same(fn(), w):
+                        raise RuntimeError(f"the {name} build's {case} differs from the shipped build's")
+                    times[name][case].append(_device_ms(fn, reps))
+    finally:
+        build.lib = lambda: main
+    for name, (regs, _) in libs.items():
+        log(f"[{part}] {name} (registers, spill bytes per entry function: {regs}): device ms per launch "
+            + "; ".join(f"{case} {t[0]:.4f} / {t[1]:.4f}" for case, t in times[name].items()))
+
+
+def k1_builds(procs, dev) -> None:
+    """K1's product at 2^17, 1 and 4 elements and its exponentiation by
+    p - 2 at 1 and 2^10, from each build of `K1_BUILDS`
+    (`_builds_in_turns`)."""
+    from ..fields.spec import BLS12_381_FQ, BN254_FQ
+    from ..ops import ntt_kernel
+
+    rng = random.Random(11)
+
+    def field(spec, n):
+        p = spec.modulus
+        vals = ([0, 1, p - 1] + [rng.randrange(p) for _ in range(n)])[:n]
+        return limb.tensor(limb.pack(spec, vals), dev)
+
+    cases = []
+    for spec in (BN254_FR, BLS12_381_FQ):
+        a, b = field(spec, 1 << 17), field(spec, 1 << 17)
+        cases.append((f"{spec.name} mul 2^17", lambda s=spec, a=a, b=b: ntt_kernel.mont_mul(s, a, b)))
+    a, s1 = field(BN254_FR, 1 << 17), field(BN254_FR, 4)[:, 3:4].contiguous()
+    cases.append(("bn254_fr scale 2^17", lambda: ntt_kernel.mont_scale(BN254_FR, a, s1)))
+    for n in (1, 4):
+        x, y = field(BN254_FQ, n), field(BN254_FQ, n)
+        cases.append((f"bn254_fq mul {n}", lambda x=x, y=y: ntt_kernel.mont_mul(BN254_FQ, x, y)))
+    for spec, n in ((BN254_FQ, 1), (BN254_FQ, 1 << 10), (BLS12_381_FQ, 1)):
+        x = field(spec, n)
+        cases.append((f"{spec.name} pow p - 2, {n}", lambda s=spec, x=x: ntt_kernel.mont_pow(s, x, s.modulus - 2)))
+    _builds_in_turns(procs, "k1", ("ozl_mont_mul", "ozl_mont_pow"), cases, 20)
+
+
+def k6_builds(procs, dev) -> None:
+    """K6 at 2^16 states of width 3 (its register kernel) over BN254 Fr
+    and BLS12-381 Fr from each build of `K6_MIN_BLOCKS`
+    (`_builds_in_turns`)."""
+    from ..fields.spec import BLS12_381_FR
+
+    gen = torch.Generator().manual_seed(6)
+    cases = []
+    for spec in (BN254_FR, BLS12_381_FR):
+        perm = Poseidon.create(spec, 2, device=dev)
+        n = spec.n_limbs
+        x = torch.randint(0, 1 << 16, (n, 3, 1 << 16), generator=gen, dtype=torch.int32)
+        x[-1] = torch.randint(0, spec.modulus >> (16 * (n - 1)), (3, 1 << 16), generator=gen, dtype=torch.int32)
+        x = x.to(dev)
+        cases.append((f"{spec.name} width 3", lambda perm=perm, x=x: poseidon_kernel.permute_optimized(perm, x)))
+    _builds_in_turns(procs, "k6", ("ozl_poseidon_permute_opt",), cases, 10)
+
+
+def profiler_records(dev) -> None:
+    """How many of ten K5 launches' kernel records one profile keeps, with
+    the profiler held open 0 and `PROFILE_PAD_MS` ms on either side of the
+    call, in turns, 20 profiles each, after 300 narrow K1 launches under 30
+    profiles."""
+    from ..fields.spec import BN254_FQ
+    from ..ops import ntt_kernel
+
+    perm = Poseidon.create(BN254_FR, 2, device=dev)
+    x = limb.tensor(limb.pack_mont(BN254_FR, np.arange(3 << 16, dtype=np.int64).astype(object).reshape(3, -1)), dev)
+    a = limb.tensor(limb.pack(BN254_FQ, [3, 5, 7, 11]), dev)
+    for _ in range(30):
+        profile.profile(lambda: [ntt_kernel.mont_mul(BN254_FQ, a, a) for _ in range(10)], pad_ms=0)
+    kept = {0.0: [], PROFILE_PAD_MS: []}
+    for _ in range(20):
+        for pad in kept:
+            report = profile.profile(lambda: [poseidon_kernel.permute(perm, x) for _ in range(10)], pad_ms=pad)
+            kept[pad].append(report.kernel_events)
+    for pad, counts in kept.items():
+        log(f"[prof] pad {pad:.0f} ms: kernel records kept of 10 launches, 20 profiles: {counts} "
+            f"({sum(c < 10 for c in counts)} profiles short)")
 
 
 def k5_sweep(dev, rng) -> None:
@@ -253,7 +428,7 @@ def k9_builds(procs, cases, dev) -> None:
     flat = lambda o: [*o[0], o[1], *o[2], o[3], o[4]]
     try:
         for name, (so, proc) in procs.items():
-            if name == "microbench" or name.startswith("ec: "):
+            if name == "microbench" or name.startswith(("k1: ", "k3: ", "k6: ")):
                 continue
             regs = _ptxas(_finish(proc, name))
             lib = ctypes.CDLL(str(so))
@@ -288,18 +463,19 @@ def _ec_points(curve, n, dev, seed):
 
 
 def _device_ms(fn, reps: int) -> float:
-    """Device time per call of fn (torch.profiler: the sum of its kernels'
-    durations over reps calls, divided by reps): the launch's host cost,
-    which is of the order of a G1 kernel's own time, is left out."""
-    fn()
-    report = profile.profile(lambda: [fn() for _ in range(reps)])
-    return sum(ms for ms, _, _ in report.kernels) / reps
+    """Device time per call of fn (`profile.device_ms`: the sum of its
+    kernels' durations over reps calls, divided by reps): the launch's
+    host cost, which is of the order of a G1 kernel's own time, is left
+    out. Raises when every profile lost a kernel record."""
+    ms = profile.device_ms(fn, reps)
+    if ms is None:
+        raise RuntimeError("torch.profiler lost kernel records in every try")
+    return ms
 
 
 def k3_builds(procs, dev) -> None:
-    """K3 add and madd and K4 over G1 and G2 at 2^16 points, every build:
-    device ms per launch, each build timed twice, in turns (builds in order,
-    then in reverse), so that a drift of the card's clock shows."""
+    """K3 add and madd and K4 over G1 and G2 at 2^16 points, every build
+    (`_builds_in_turns`)."""
     n = 1 << 16
     cases = []
     for curve in (BN254.g1, BN254.g2):
@@ -309,34 +485,49 @@ def k3_builds(procs, dev) -> None:
             (f"{curve.name} madd", lambda c=curve, P=P, Qa=Qa: ec_kernel.ec_add(c, tuple(P), tuple(Qa), True)),
             (f"{curve.name} dbl", lambda c=curve, P=P: ec_kernel.ec_dbl(c, tuple(P))),
         ]
-    want = [fn() for _, fn in cases]
-    main = build.lib()
-    libs = {}
-    for name, (so, proc) in procs.items():
-        if not name.startswith("ec: "):
-            continue
-        regs = _ptxas(_finish(proc, name))
-        lib = ctypes.CDLL(str(so))
-        fns = {}
-        for entry in ("ozl_ec_add", "ozl_ec_dbl"):
-            fn = getattr(lib, entry)
-            fn.argtypes, fn.restype = build._SIGNATURES[entry], ctypes.c_int
-            fns[entry] = fn
-        libs[name[4:]] = (regs, fns)
-    times = {name: {case: [] for case, _ in cases} for name in libs}
-    try:
-        for order in (list(libs), list(libs)[::-1]):
-            for name in order:
-                build.lib = lambda fns=libs[name][1]: _With(main, **fns)
-                for (case, fn), w in zip(cases, want):
-                    if not all(torch.equal(a, b) for a, b in zip(fn(), w)):
-                        raise RuntimeError(f"the {name} build's {case} differs from the shipped build's")
-                    times[name][case].append(_device_ms(fn, 20))
-    finally:
-        build.lib = lambda: main
-    for name, (regs, _) in libs.items():
-        log(f"[k3] {name} (registers, spill bytes per entry function: {regs}): device ms per launch "
-            + "; ".join(f"{case} {t[0]:.4f} / {t[1]:.4f}" for case, t in times[name].items()))
+    _builds_in_turns(procs, "k3", ("ozl_ec_add", "ozl_ec_dbl"), cases, 20)
+
+
+def _inverse_mod(m, p):
+    """The inverse of the square matrix m (lists of ints) over F_p."""
+    n = len(m)
+    a = [[*row, *(int(i == j) for j in range(n))] for i, row in enumerate(m)]
+    for c in range(n):
+        piv = next(r for r in range(c, n) if a[r][c])
+        a[c], a[piv] = a[piv], a[c]
+        inv = pow(a[c][c], -1, p)
+        a[c] = [v * inv % p for v in a[c]]
+        for r in range(n):
+            if r != c and a[r][c]:
+                f = a[r][c]
+                a[r] = [(v - f * u) % p for v, u in zip(a[r], a[c])]
+    return [row[n:] for row in a]
+
+
+def directed_state(perm):
+    """The state that gives K5's last MDS product, whose rows are the
+    output, its largest inputs: after the last round's keys and S-box every
+    element's Montgomery word is p - 1 (found by running the rounds
+    backwards). Returns (its field elements, the largest row sum T that
+    product then meets, over the most a row summed whole and reduced once
+    could take). `F1c::redc` reads 2 NW words of T and subtracts p at most
+    twice, and the row's final addition once more, so such a row is exact
+    only while T < min(R^2, 3 p R); `mac_group`'s groups keep every T below
+    K p^2 < 2 p R whatever the width."""
+    spec, w = perm.spec, perm.width
+    p, R = spec.modulus, 1 << (16 * spec.n_limbs)
+    r_inv, root5 = pow(R, -1, p), pow(5, -1, p - 1)
+    half, rounds = perm.full_rounds // 2, perm.full_rounds + perm.partial_rounds
+    keys = [[int(k) for k in limb.unpack_mont(spec, perm.round_keys[r])] for r in range(rounds)]
+    mds = [[int(v) for v in row] for row in limb.unpack(spec, perm.mds)]
+    mds_inv = _inverse_mod([[v * r_inv % p for v in row] for row in mds], p)
+    x = [(p - 1) * r_inv % p] * w
+    for r in reversed(range(rounds)):
+        full = r < half or r >= half + perm.partial_rounds
+        x = [(pow(v, root5, p) if j == 0 or full else v) - k for j, (v, k) in enumerate(zip(x, keys[r]))]
+        if r:
+            x = [sum(m * v for m, v in zip(row, x)) % p for row in mds_inv]
+    return [v % p for v in x], (p - 1) * max(map(sum, mds)) / min(R * R, 3 * p * R)
 
 
 def hillis_steele_scan(curve, totals, tflag):
@@ -405,6 +596,12 @@ def main() -> None:
         exe, proc = procs.pop("microbench")
         microbench(exe, _finish(proc, "microbench"))
     dev, rng = torch.device("cuda"), random.Random(1)
+    if "k1" in parts:
+        k1_builds(procs, dev)
+    if "k6" in parts:
+        k6_builds(procs, dev)
+    if "prof" in parts:
+        profiler_records(dev)
     if "k5" in parts:
         k5_sweep(dev, rng)
     cases = _fold_cases(dev, rng) if {"k9", "scan"} & set(parts) else []

@@ -159,6 +159,8 @@ _U32 = ctypes.c_uint32
 _SIGNATURES = {
     # (out, a, b, N, b_limb_stride, b_elem_stride, n_limbs, p, n0, stream)
     "ozl_mont_mul": [_VP, _VP, _VP, _I64, _I64, _I64, _I, _VP, _U32, _VP],
+    # (out, a, N, exponent words, bits, n_limbs, p, n0, one, stream)
+    "ozl_mont_pow": [_VP, _VP, _I64, _VP, _I, _I, _VP, _U32, _VP, _VP],
     # (out, x, stage_tw, post_tw|0, M, lanes, n_limbs, p, n0, stream)
     "ozl_small_ntt": [_VP, _VP, _VP, _VP, _I, _I64, _I, _VP, _U32, _VP],
     # (u, t, in_ls, tw, tw_ls, mask, lo, hi, out_ls, out_ks, H, B, n_limbs,

@@ -27,6 +27,7 @@ from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
 from openzl_tpu_torch.ops import ec_kernel, msm, ntt, ntt_kernel, poseidon2_kernel, poseidon_kernel
 from openzl_tpu_torch.proof_systems import BLS12_381, BN254, KZG, Groth16
 from openzl_tpu_torch.ref import curve as ref
+from openzl_tpu_torch.tools import kernel_probe
 
 pytestmark = pytest.mark.gpu
 
@@ -70,6 +71,16 @@ def test_k1_kernel_matches_plain(cuda):
     assert torch.equal(ntt_kernel.mont_mul(spec, a, b), ntt_kernel.mont_mul_plain(spec, a, b))
     s = b[:, 3:4].contiguous()
     assert torch.equal(ntt_kernel.mont_scale(spec, a, s), ntt_kernel.mont_mul_plain(spec, a, s))
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BLS12_381_G1.base], ids=lambda s: s.name)
+@pytest.mark.parametrize("n", [1, 4, 1 << 10])
+def test_k1_mont_pow_matches_plain(cuda, spec, n):
+    """K1's exponentiation at 16 and 24 limbs against its plain chain, by
+    p - 2, 0, 1 and a random exponent, 0 among the inputs past one."""
+    a = _field(spec, max(n, 4), 11 + n, cuda)[:, 3 if n == 1 else 0:][:, :n].contiguous()
+    for e in (spec.modulus - 2, 0, 1, random.Random(n).getrandbits(256)):
+        assert torch.equal(ntt_kernel.mont_pow(spec, a, e), ntt_kernel.mont_pow_plain(spec, a, e)), e
 
 
 def test_k2_kernel_and_ntt_match_cpu(cuda):
@@ -251,6 +262,19 @@ def test_k5_k6_kernels_match_plain_at_other_widths(cuda, spec, width):
     assert torch.equal(poseidon_kernel.permute(perm, x), want)
     assert torch.equal(poseidon_kernel.permute_optimized(perm, x), want)
     assert poseidon_kernel.variant(1, width) == "wide"
+
+
+def test_k6_kernel_matches_plain_on_the_worst_case_state(cuda):
+    """K6 at BLS12-381 Fr width 17, where its rows need `mac_group`'s
+    groups most, on 129 states with K5's worst-case state (every last-round
+    MDS input the Montgomery word p - 1) among them."""
+    perm = Poseidon.create(BLS12_381_FR, 16, device=cuda)
+    x = _states(BLS12_381_FR, 129, 59, cuda, 17)
+    directed, _ = kernel_probe.directed_state(perm)
+    x[:, :, 3] = limb.tensor(limb.pack_mont(BLS12_381_FR, directed), cuda)
+    want = poseidon_kernel.permute_plain(perm, x)
+    assert torch.equal(poseidon_kernel.permute_optimized(perm, x), want)
+    assert torch.equal(poseidon_kernel.permute(perm, x), want)
 
 
 @pytest.mark.parametrize("spec", [BN254_FR, BLS12_381_FR], ids=lambda s: s.name)
