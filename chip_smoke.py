@@ -22,9 +22,9 @@ Phases:
               1 and 4 (the narrow launches the request still makes),
               K1's exponentiation `mont_pow` over BN254 Fq and Fr and
               BLS12-381 Fq at 1, 4 and 2^10 elements, exponents p - 2,
-              0, 1 and a random one, each with its operations bound and
-              its latency bound (squares and products times their
-              latency on one warp)
+              0, 1 and a random one, each with its bound: the larger of
+              its operations bound and its latency bound (squares and
+              products times their latency on one warp)
   3b. kernels K3 (add, madd) and K4 at 24 limbs, over BLS12-381 G1 and G2
               at 2^16 points with every mask case, the same way
   4. roundtrip  port on CUDA against port on CPU, same seeds, 2 chain
@@ -110,7 +110,7 @@ launches on their path, and the bound: the least time the card could take
 for the same work; the rows of K3, K4, K9 and K3s also carry their
 BLS12-381 launches and runs, with each kernel's registers and spills, the
 rows of K5, K6 and K7 their phase 6b runs and launches by state width, and
-the row of `mont_pow` every run with its latency bound), then,
+the rows of K1 and `mont_pow` every run with its device time), then,
 as the last line, {"ok": true, "device": {...}}. Any failure exits non-zero
 with no result. Imports only the port (`openzl_tpu_torch`), never JAX.
 
@@ -394,7 +394,8 @@ def _pow_work(spec, exponent: int, n: int, latency):
     written once; the latency bound is one thread's chain of those squares
     and products, each at the lesser of one square's and one product's
     latency on one warp of the field the kernel runs (F1c below its
-    bound)."""
+    bound). The chain's bound is the largest of the three (`bound` in
+    main)."""
     squares, products = max(exponent.bit_length() - 1, 0), bin(exponent).count("1")
     top = spec.modulus >> (16 * spec.n_limbs - 32)
     field = "F1c" if spec.n_limbs > 2 and top < 0x7FFFFFFF else "F1"
@@ -460,10 +461,8 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
                 got = ntt_kernel.mont_pow(spec, a, e)
                 exp, pms = _wall(lambda: ntt_kernel.mont_pow_plain(spec, a, e), dev)  # one plain run
                 ms = _time(lambda: ntt_kernel.mont_pow(spec, a, e), pow_reps, dev)
-                work = _pow_work(spec, e, m, latency)
-                lat = "latency bound not measured" if work[2] is None else f"latency bound {work[2]:.4f} ms"
                 _check("mont_pow", results, [got], [exp], ms, pms,
-                       f"{spec.name} e = {label} ({e.bit_length()} bits, n={m}; {lat})", work,
+                       f"{spec.name} e = {label} ({e.bit_length()} bits, n={m})", _pow_work(spec, e, m, latency),
                        lambda: ntt_kernel.mont_pow(spec, a, e))
 
     # K2: every (M, lanes, post-twiddle) launch of the 2^log_n NTT plan
@@ -1422,7 +1421,12 @@ def main() -> None:
     log(f"[bound] {sms} SMs at {clock_mhz:.0f} MHz: {products_per_s:.4g} word products/s; 3.35e12 B/s")
 
     def bound(work):
+        """(ms, "operations" or "bytes") of `work`; a third item, the
+        latency of K1's exponentiation chain (`_pow_work`), bounds its
+        operations too"""
         t_ops, t_bytes = work[0] / products_per_s * 1e3, work[1] / 3.35e12 * 1e3
+        if len(work) > 2 and work[2] is not None:
+            t_ops = max(t_ops, work[2])
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
     # the repo's TPU experiments, which no path of either package runs
@@ -1437,11 +1441,9 @@ def main() -> None:
         for kname, entries in runs.items():
             for _, ms, _, work, shape, dms, _ in entries:
                 b_ms, b_by = bound(work)
-                lat = "" if len(work) < 3 or work[2] is None else \
-                    f"; latency bound {work[2]:.4f} ms, {work[2] / ms:.1%} of the kernel time" + (
-                        f", {work[2] / dms:.1%} of its device time" if dms else "")
+                dev = f", {b_ms / dms:.1%} of its device time {dms:.4f} ms" if dms else ""
                 log(f"[bound] {kname} {shape}: bound {b_ms:.4f} ms ({b_by}), kernel {ms:.4f} ms, "
-                    f"{b_ms / ms:.1%} of the bound{lat}")
+                    f"{b_ms / ms:.1%} of the bound{dev}")
     from openzl_tpu_torch.utils import profile as prof
 
     log(f"[profile] device times: {prof.DEVICE_MS_PROFILES['taken']} profiles, "
@@ -1461,11 +1463,8 @@ def main() -> None:
     def run_row(run):
         err, ms, pms, work, shape, dms, key = run
         b_ms, b_by = bound(work)
-        row = {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
-               "bound_ms": b_ms, "bound_by": b_by, "ptxas": ptx(key)}
-        if len(work) > 2:
-            row["latency_bound_ms"] = work[2]
-        return row
+        return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
+                "bound_ms": b_ms, "bound_by": b_by, "ptxas": ptx(key)}
 
     rows = []
     for k in kernels:
@@ -1494,11 +1493,8 @@ def main() -> None:
             row["ptxas"] = ptx(runs[0][6])
         if k.name in ("mont_mul", "mont_pow"):
             # each run (2^17 and narrow products; every exponentiation case)
-            # with its device time and, for the exponentiation, its latency
-            # bound
+            # with its device time
             row["runs"] = [run_row(r) for r in runs]
-            if len(runs[0][3]) > 2:
-                row["latency_bound_ms"] = runs[0][3][2]
         if k.name in width_results:
             # phase 6b: each other state width's run, and the launches by
             # state width through the entry points

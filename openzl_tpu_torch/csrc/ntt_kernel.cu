@@ -12,9 +12,8 @@
 // registers and touches device memory once per operand. Scale mode reads
 // one broadcast element (b strides 0 over elements). The product runs on
 // F1, whose 2^17-element launch took 0.0070 ms of device time on the H100
-// against F1c's 0.0080 (tools/kernel_probe.py part k1; PERF.md);
-// -DOZL_K1_MUL_F1C=1 builds it on F1c (field.cuh, carry chains) where p's
-// top word is below F1c's bound.
+// against 0.0080 for the same kernel on F1c (field.cuh, carry chains;
+// PERF.md).
 //
 // K1's exponentiation (`ozl_mont_pow`) replaces the chain of K1 launches
 // that `limb.mont_pow` ran, one launch per square or product, whose JAX
@@ -28,10 +27,9 @@
 // so a launch lasts one thread's chain of NW-word products: latency, not
 // throughput, bounds it, and the design takes a launch of some 380 (BN254)
 // to 570 (BLS12-381 Fq) products down to one. F1c's product and dedicated
-// square where p's top word allows, F1 otherwise (-DOZL_K1_POW_F1C=0: F1
-// everywhere): by p - 2, one element took 0.1917 ms of device time on
-// F1c against F1's 0.2297 over BN254 Fq, 0.6852 against 0.7986 over
-// BLS12-381 Fq (kernel_probe part k1).
+// square where p's top word allows, F1 otherwise: by p - 2, one element
+// took 0.1917 ms of device time on F1c against F1's 0.2297 over BN254 Fq,
+// 0.6852 against 0.7986 over BLS12-381 Fq (PERF.md).
 //
 // K2 replaces `_make_small_ntt_kernel` (:160, through `small_ntt()` :200):
 // all log2(M) decimation-in-frequency stages of an M-point transform along
@@ -67,13 +65,6 @@
 
 namespace {
 
-#ifndef OZL_K1_MUL_F1C
-#define OZL_K1_MUL_F1C 0
-#endif
-#ifndef OZL_K1_POW_F1C
-#define OZL_K1_POW_F1C 1
-#endif
-
 // p's top word below this: F1c's carry chains hold (field.cuh)
 constexpr uint32_t kF1cTop = 0x7FFFFFFFu;
 
@@ -84,15 +75,15 @@ OZL_HD F make_field(const FieldParams<NW>& f) {
   return Fd;
 }
 
-template <class F, int NW>
+template <int NW>
 __global__ void mont_mul_kernel(int32_t* out, const int32_t* a, const int32_t* b, int64_t N,
                                 int64_t b_ls, int64_t b_es, FieldParams<NW> f) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  const F Fd = make_field<F, NW>(f);
+  F1<NW> F{f};
   Fp<NW> x = load_fp<NW>(a, N, i);
   Fp<NW> y = load_fp<NW>(b, b_ls, i * b_es);
-  store_fp<NW>(out, N, i, Fd.mul(x, y));
+  store_fp<NW>(out, N, i, F.mul(x, y));
 }
 
 template <class F, int NW>
@@ -104,18 +95,11 @@ __global__ void mont_pow_kernel(int32_t* out, const int32_t* a, int64_t N, const
   store_fp<NW>(out, N, i, pow_bits(Fd, load_fp<NW>(a, N, i), e, bits, one));
 }
 
-// F1c where the build allows it (`use`) and p's top word is below its
-// bound, F1 otherwise (and for one-word fields, which F1c does not take)
+// F1c where p's top word is below its bound, F1 otherwise (and for
+// one-word fields, which F1c does not take)
 template <int NW>
-bool carry_chains(bool use, const uint32_t* p) {
-  return NW >= 2 && use && p[NW - 1] < kF1cTop;
-}
-
-template <class F, int NW>
-void start_mul(unsigned blocks, int threads, cudaStream_t st, void* out, const void* a,
-               const void* b, int64_t N, int64_t b_ls, int64_t b_es, const FieldParams<NW>& f) {
-  mont_mul_kernel<F, NW><<<blocks, threads, 0, st>>>((int32_t*)out, (const int32_t*)a,
-                                                     (const int32_t*)b, N, b_ls, b_es, f);
+bool carry_chains(const uint32_t* p) {
+  return NW >= 2 && p[NW - 1] < kF1cTop;
 }
 
 template <int NW>
@@ -123,15 +107,10 @@ int launch_mont_mul(void* out, const void* a, const void* b, int64_t N, int64_t 
                     int64_t b_es, const uint32_t* p, uint32_t n0, cudaStream_t st) {
   const int threads = 256;
   int64_t blocks = (N + threads - 1) / threads;
-  if (blocks <= 0) return (int)cudaGetLastError();
-  const FieldParams<NW> f = make_params<NW>(p, n0);
-  if constexpr (NW >= 2) {
-    if (carry_chains<NW>(OZL_K1_MUL_F1C, p)) {
-      start_mul<F1c<NW>, NW>((unsigned)blocks, threads, st, out, a, b, N, b_ls, b_es, f);
-      return (int)cudaGetLastError();
-    }
-  }
-  start_mul<F1<NW>, NW>((unsigned)blocks, threads, st, out, a, b, N, b_ls, b_es, f);
+  if (blocks > 0)
+    mont_mul_kernel<NW><<<(unsigned)blocks, threads, 0, st>>>(
+        (int32_t*)out, (const int32_t*)a, (const int32_t*)b, N, b_ls, b_es,
+        make_params<NW>(p, n0));
   return (int)cudaGetLastError();
 }
 
@@ -154,7 +133,7 @@ int launch_mont_pow(void* out, const void* a, int64_t N, const void* e, int bits
   Fp<NW> one;
   for (int w = 0; w < NW; ++w) one.w[w] = one_words[w];
   if constexpr (NW >= 2) {
-    if (carry_chains<NW>(OZL_K1_POW_F1C, p)) {
+    if (carry_chains<NW>(p)) {
       start_pow<F1c<NW>, NW>((unsigned)blocks, threads, st, out, a, N, e, bits, f, one);
       return (int)cudaGetLastError();
     }

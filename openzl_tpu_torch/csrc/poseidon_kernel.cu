@@ -81,21 +81,14 @@ __global__ void __launch_bounds__(kThreads)
   store_state<W, NW>(out, B, b, x.v);
 }
 
-// K6 on registers, with no launch bounds: ptxas gave it 88 registers and
-// no spill; bounds of kThreads and one block an SM gave 138 registers and
+// K6 on registers, with no launch bounds: ptxas gives it 88 registers and
+// no spill. Bounds of kThreads and one block an SM gave 138 registers and
 // a slower kernel, six blocks 80 registers and 8 B of spill stores
-// (kernel_probe part k6; PERF.md). -DOZL_K6_MIN_BLOCKS=n builds it
-// with bounds of kThreads and n blocks an SM.
-#ifdef OZL_K6_MIN_BLOCKS
-#define OZL_K6_BOUNDS __launch_bounds__(kThreads, OZL_K6_MIN_BLOCKS)
-#else
-#define OZL_K6_BOUNDS
-#endif
-
+// (PERF.md).
 template <int W, int NW>
-__global__ void OZL_K6_BOUNDS
-    poseidon_opt_kernel(int32_t* out, const int32_t* in, const int32_t* consts, int64_t B,
-                        int full_rounds, int partial_rounds, int n_words, FieldParams<NW> f) {
+__global__ void poseidon_opt_kernel(int32_t* out, const int32_t* in, const int32_t* consts,
+                                    int64_t B, int full_rounds, int partial_rounds, int n_words,
+                                    FieldParams<NW> f) {
   extern __shared__ uint32_t sm[];
   stage_consts(sm, consts, n_words);
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;

@@ -2,8 +2,8 @@
 
     python3 -m openzl_tpu_torch.tools.kernel_probe [part ...]
 
-Parts (all by default): microbench, k1, k5, k9, k3, scan. Prints, on the
-card it runs on:
+Parts (all by default): microbench, k5, k9, k3, scan. Prints, on the card
+it runs on:
   * `field_microbench.cu` (built here with nvcc): latency and throughput of
     the F1 and F1c field operations and of one G1 mixed add, and K5's
     split rounds at 32, 64 and 128 threads a block; then the instruction
@@ -11,19 +11,6 @@ card it runs on:
     one F1 and one F1c product and square at 16 and 24 limbs
     (`product_latency`, which `chip_smoke.py` also runs for the bound of
     K1's exponentiation chain);
-  * K1 from builds of `csrc/ntt_kernel.cu` with its product and its
-    exponentiation on F1c or F1 (its -D options; `K1_BUILDS`): device ms per launch of the product at 2^17 elements (BN254
-    Fr, BLS12-381 Fq, and the scale) and at 1 and 4 elements, and of the
-    exponentiation by p - 2 at 1 and 2^10 elements, each build held
-    against the shipped one and timed twice, in turns;
-  * K6 from builds of `csrc/poseidon_kernel.cu` with launch bounds
-    (`-DOZL_K6_MIN_BLOCKS`, `K6_MIN_BLOCKS`): device ms per launch at 2^16
-    states of width 3 over BN254 Fr and BLS12-381 Fr, in turns, each held
-    against the shipped build;
-  * torch.profiler's kernel records (`prof`): after a few hundred launches
-    and profiles, profiles of ten K5 launches with the profiler held open
-    0 and `PROFILE_PAD_MS` ms on either side of the call, in turns: how
-    many of the ten records each kept;
   * K5's two variants through the wrapper over batch sizes around the
     switch (`poseidon_kernel.SPLIT_MAX_B`);
   * K9 on the G1 fold of a 2^16-point KZG commit and a G2 fold of 120,323
@@ -78,16 +65,7 @@ FOLD_BOUNDS = [(128, 4, 2), (128, 3, 3), (64, 8, 4), (64, 6, 4), (32, 16, 8), (3
 EC_BUILDS = [(2, 1, "F1c"), (3, 2, "F1c"), (4, 2, "F1c"), (2, 1, "F1")]
 #: bounds of the lifted scan's narrow levels swept (`ec_kernel.SCAN_NARROW`)
 SCAN_NARROWS = [0, 4096, 16384, 32768]
-#: K1 builds of ntt_kernel.cu: (name, the product on F1c, the
-#: exponentiation on F1c), passed as -D options; the first is what it ships
-K1_BUILDS = [("product F1, exponentiation F1c", 0, 1), ("F1c", 1, 1), ("F1", 0, 0)]
-#: ms the `prof` part holds the profiler open on either side of the call
-PROFILE_PAD_MS = 50.0
-#: K6 builds of poseidon_kernel.cu: launch bounds of 128 threads and this
-#: many blocks per SM, passed as -DOZL_K6_MIN_BLOCKS; None, no bounds, is
-#: what it ships
-K6_MIN_BLOCKS = [None, 1, 6, 7, 8]
-PARTS = ("microbench", "k1", "k6", "prof", "k5", "k9", "k3", "scan")
+PARTS = ("microbench", "k5", "k9", "k3", "scan")
 DIRECT_SRC = """template <class T>
 struct DirectRead {
   static constexpr int PW = 2 * (int)(sizeof(T) / sizeof(uint32_t));
@@ -158,10 +136,9 @@ def _fold_sources() -> dict:
 
 
 def _start_builds(parts):
-    """Start nvcc for the microbenchmark and every K1, K6, K9 and K3 / K4
-    build that `parts` needs; returns the processes by name (the K1, K6
-    and K3 / K4 builds under "k1: <name>", "k6: <name>", "k3: <name>")
-    with their outputs."""
+    """Start nvcc for the microbenchmark and every K9 and K3 / K4 build
+    that `parts` needs; returns the processes by name (the K3 / K4 builds
+    under "k3: <name>") with their outputs."""
     nvcc = build._nvcc()
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -171,19 +148,6 @@ def _start_builds(parts):
 
     if "microbench" in parts:
         procs["microbench"] = start_microbench()
-    if "k1" in parts:
-        for i, (name, mul, pw) in enumerate(K1_BUILDS):
-            so = OUT / f"k1_{i}.so"
-            start(f"k1: {name}", so, [nvcc, *build.NVCC_FLAGS, f"-DOZL_K1_MUL_F1C={mul}", f"-DOZL_K1_POW_F1C={pw}",
-                                      "-I", str(build.CSRC), "-shared", "-o", str(so),
-                                      str(build.CSRC / "ntt_kernel.cu")])
-    if "k6" in parts:
-        for blocks in K6_MIN_BLOCKS:
-            so = OUT / f"k6_{blocks}.so"
-            flags = [] if blocks is None else [f"-DOZL_K6_MIN_BLOCKS={blocks}"]
-            start(f"k6: {'no launch bounds' if blocks is None else f'{blocks} blocks per SM'}", so,
-                  [nvcc, *build.NVCC_FLAGS, *flags, "-I", str(build.CSRC), "-shared", "-o", str(so),
-                   str(build.CSRC / "poseidon_kernel.cu")])
     if "k9" in parts:
         for i, (name, (fold, tmpl, ec)) in enumerate(_fold_sources().items()):
             d = OUT / f"fold_{i}"
@@ -295,76 +259,6 @@ def _builds_in_turns(procs, part: str, entries, cases, reps: int) -> None:
             + "; ".join(f"{case} {t[0]:.4f} / {t[1]:.4f}" for case, t in times[name].items()))
 
 
-def k1_builds(procs, dev) -> None:
-    """K1's product at 2^17, 1 and 4 elements and its exponentiation by
-    p - 2 at 1 and 2^10, from each build of `K1_BUILDS`
-    (`_builds_in_turns`)."""
-    from ..fields.spec import BLS12_381_FQ, BN254_FQ
-    from ..ops import ntt_kernel
-
-    rng = random.Random(11)
-
-    def field(spec, n):
-        p = spec.modulus
-        vals = ([0, 1, p - 1] + [rng.randrange(p) for _ in range(n)])[:n]
-        return limb.tensor(limb.pack(spec, vals), dev)
-
-    cases = []
-    for spec in (BN254_FR, BLS12_381_FQ):
-        a, b = field(spec, 1 << 17), field(spec, 1 << 17)
-        cases.append((f"{spec.name} mul 2^17", lambda s=spec, a=a, b=b: ntt_kernel.mont_mul(s, a, b)))
-    a, s1 = field(BN254_FR, 1 << 17), field(BN254_FR, 4)[:, 3:4].contiguous()
-    cases.append(("bn254_fr scale 2^17", lambda: ntt_kernel.mont_scale(BN254_FR, a, s1)))
-    for n in (1, 4):
-        x, y = field(BN254_FQ, n), field(BN254_FQ, n)
-        cases.append((f"bn254_fq mul {n}", lambda x=x, y=y: ntt_kernel.mont_mul(BN254_FQ, x, y)))
-    for spec, n in ((BN254_FQ, 1), (BN254_FQ, 1 << 10), (BLS12_381_FQ, 1)):
-        x = field(spec, n)
-        cases.append((f"{spec.name} pow p - 2, {n}", lambda s=spec, x=x: ntt_kernel.mont_pow(s, x, s.modulus - 2)))
-    _builds_in_turns(procs, "k1", ("ozl_mont_mul", "ozl_mont_pow"), cases, 20)
-
-
-def k6_builds(procs, dev) -> None:
-    """K6 at 2^16 states of width 3 (its register kernel) over BN254 Fr
-    and BLS12-381 Fr from each build of `K6_MIN_BLOCKS`
-    (`_builds_in_turns`)."""
-    from ..fields.spec import BLS12_381_FR
-
-    gen = torch.Generator().manual_seed(6)
-    cases = []
-    for spec in (BN254_FR, BLS12_381_FR):
-        perm = Poseidon.create(spec, 2, device=dev)
-        n = spec.n_limbs
-        x = torch.randint(0, 1 << 16, (n, 3, 1 << 16), generator=gen, dtype=torch.int32)
-        x[-1] = torch.randint(0, spec.modulus >> (16 * (n - 1)), (3, 1 << 16), generator=gen, dtype=torch.int32)
-        x = x.to(dev)
-        cases.append((f"{spec.name} width 3", lambda perm=perm, x=x: poseidon_kernel.permute_optimized(perm, x)))
-    _builds_in_turns(procs, "k6", ("ozl_poseidon_permute_opt",), cases, 10)
-
-
-def profiler_records(dev) -> None:
-    """How many of ten K5 launches' kernel records one profile keeps, with
-    the profiler held open 0 and `PROFILE_PAD_MS` ms on either side of the
-    call, in turns, 20 profiles each, after 300 narrow K1 launches under 30
-    profiles."""
-    from ..fields.spec import BN254_FQ
-    from ..ops import ntt_kernel
-
-    perm = Poseidon.create(BN254_FR, 2, device=dev)
-    x = limb.tensor(limb.pack_mont(BN254_FR, np.arange(3 << 16, dtype=np.int64).astype(object).reshape(3, -1)), dev)
-    a = limb.tensor(limb.pack(BN254_FQ, [3, 5, 7, 11]), dev)
-    for _ in range(30):
-        profile.profile(lambda: [ntt_kernel.mont_mul(BN254_FQ, a, a) for _ in range(10)], pad_ms=0)
-    kept = {0.0: [], PROFILE_PAD_MS: []}
-    for _ in range(20):
-        for pad in kept:
-            report = profile.profile(lambda: [poseidon_kernel.permute(perm, x) for _ in range(10)], pad_ms=pad)
-            kept[pad].append(report.kernel_events)
-    for pad, counts in kept.items():
-        log(f"[prof] pad {pad:.0f} ms: kernel records kept of 10 launches, 20 profiles: {counts} "
-            f"({sum(c < 10 for c in counts)} profiles short)")
-
-
 def k5_sweep(dev, rng) -> None:
     perm = Poseidon.create(BN254_FR, 2, device=dev)
     p = BN254_FR.modulus
@@ -428,7 +322,7 @@ def k9_builds(procs, cases, dev) -> None:
     flat = lambda o: [*o[0], o[1], *o[2], o[3], o[4]]
     try:
         for name, (so, proc) in procs.items():
-            if name == "microbench" or name.startswith(("k1: ", "k3: ", "k6: ")):
+            if name == "microbench" or name.startswith("k3: "):
                 continue
             regs = _ptxas(_finish(proc, name))
             lib = ctypes.CDLL(str(so))
@@ -596,12 +490,6 @@ def main() -> None:
         exe, proc = procs.pop("microbench")
         microbench(exe, _finish(proc, "microbench"))
     dev, rng = torch.device("cuda"), random.Random(1)
-    if "k1" in parts:
-        k1_builds(procs, dev)
-    if "k6" in parts:
-        k6_builds(procs, dev)
-    if "prof" in parts:
-        profiler_records(dev)
     if "k5" in parts:
         k5_sweep(dev, rng)
     cases = _fold_cases(dev, rng) if {"k9", "scan"} & set(parts) else []

@@ -21,9 +21,9 @@ activities, the CUPTI trace) and reduces the raw trace to a `Profile`:
 On the H100 (torch 2.11, CUDA 12.8) a profile late in a long process can
 keep fewer kernel records than the host made launches: a profile of ten K5
 launches kept 4 to 6 of them, which made a kernel's device time a fifth
-to a tenth of its CUDA-event time in `chip_smoke.py`. Holding the
-profiler open longer around the call (`pad_ms`) did not stop it
-(PERF.md). `device_ms` therefore profiles again until no record is lost.
+to a tenth of its CUDA-event time in `chip_smoke.py`. The cause is not
+known (PERF.md). `device_ms` therefore profiles again until no record is
+lost.
 
 On a CPU tensor path the trace holds no device events, so `busy_ms` is 0:
 the numbers are the card's only when `fn` ran there.
@@ -75,8 +75,6 @@ class Profile:
         return out
 
 
-
-
 def _union_ms(spans) -> float:
     busy, end = 0, None
     for s, e in sorted(spans):
@@ -89,10 +87,9 @@ def _union_ms(spans) -> float:
     return busy / 1e6
 
 
-def profile(fn: Callable[[], object], pad_ms: float = 0.0) -> Profile:
+def profile(fn: Callable[[], object]) -> Profile:
     """Run `fn` once under the profiler; synchronizes the card before and
-    after when CUDA is available, and then waits `pad_ms` inside the
-    profiler's window on each side of the call (not in `wall_ms`)."""
+    after when CUDA is available."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -102,13 +99,11 @@ def profile(fn: Callable[[], object], pad_ms: float = 0.0) -> Profile:
         acts.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        time.sleep(pad_ms / 1e3)
         t0 = time.perf_counter()
         fn()
         if cuda:
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        time.sleep(pad_ms / 1e3)
     spans, per_kernel = [], collections.defaultdict(lambda: [0, 0])
     launches, syncs, kernel_events = [0, 0], [0, 0], 0
     for ev in prof.profiler.kineto_results.events():
@@ -139,16 +134,19 @@ DEVICE_MS_PROFILES = {"taken": 0, "lost": 0}
 def device_ms(fn: Callable[[], object], reps: int, tries: int = 5) -> Optional[float]:
     """Device ms per call of fn on the card: its kernels' durations summed
     over `reps` calls under one profile, over `reps`, without the host's
-    cost of a launch. Profiled again, up to `tries` times, while the trace
-    has lost a kernel record; None off the card, when no kernel ran, or
-    when every try lost one."""
+    cost of a launch. fn must launch as many kernels on every call. A
+    profile has lost a record when a host launch has no kernel record, or
+    when the kernel records are not a whole number of calls (a host record
+    lost with its kernel's); it is profiled again, up to `tries` times.
+    None off the card, when no kernel ran, or when every try lost one."""
     if not torch.cuda.is_available():
         return None
     fn()
     for _ in range(tries):
         report = profile(lambda: [fn() for _ in range(reps)])
+        lost = report.lost or report.kernel_events % reps
         DEVICE_MS_PROFILES["taken"] += 1
-        DEVICE_MS_PROFILES["lost"] += bool(report.lost)
-        if report.kernels and not report.lost:
+        DEVICE_MS_PROFILES["lost"] += bool(lost)
+        if report.kernels and not lost:
             return sum(ms for ms, _, _ in report.kernels) / reps
     return None

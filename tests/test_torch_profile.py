@@ -38,11 +38,25 @@ def test_device_ms_profiles_again_while_a_record_is_lost(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     whole = _report([(3.0, 3, "k")], 3, 3)
     reports = iter([_report([(2.0, 2, "k")], 2, 3), _report([(1.0, 1, "k")], 1, 3), whole])
-    monkeypatch.setattr(profile, "profile", lambda fn, pad_ms=0.0: next(reports))
+    monkeypatch.setattr(profile, "profile", lambda fn: next(reports))
     before = dict(profile.DEVICE_MS_PROFILES)
     assert profile.device_ms(lambda: None, 3) == 1.0
     assert profile.DEVICE_MS_PROFILES["taken"] - before["taken"] == 3
     assert profile.DEVICE_MS_PROFILES["lost"] - before["lost"] == 2
     assert whole.lost == 0 and _report([], 1, 3).lost == 2
-    monkeypatch.setattr(profile, "profile", lambda fn, pad_ms=0.0: _report([(2.0, 2, "k")], 2, 3))
+    monkeypatch.setattr(profile, "profile", lambda fn: _report([(2.0, 2, "k")], 2, 3))
     assert profile.device_ms(lambda: None, 3) is None
+
+
+def test_device_ms_profiles_again_when_a_host_record_is_lost_too(monkeypatch):
+    """A profile whose kernel records are not a whole number of calls lost
+    a host launch with its kernel record, which `Profile.lost` cannot see:
+    `device_ms` profiles again."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    short = _report([(2.0, 2, "k")], 2, 2)
+    assert short.lost == 0
+    reports = iter([short, _report([(6.0, 6, "k")], 6, 6)])
+    monkeypatch.setattr(profile, "profile", lambda fn: next(reports))
+    before = dict(profile.DEVICE_MS_PROFILES)
+    assert profile.device_ms(lambda: None, 3) == 2.0
+    assert profile.DEVICE_MS_PROFILES["lost"] - before["lost"] == 1
