@@ -53,7 +53,10 @@ Phases:
               over BLS12-381 Fr, domain 2^17; K3, K4, K9 and K3s must
               launch at 24 limbs; then 5b over this request's two scans
   6. hash     K5, K6 and K7 against their plain versions at batch 2^16
-              (BN254 Fr, width 3, bit-exact), both K5 variants (wide and
+              (BN254 Fr, width 3, bit-exact), K7 on the worst-case state
+              (every element p - 1, the largest input of each linear-layer
+              sum K7 leaves unreduced) at widths 2, 3, 4, 8 and 12 over
+              BN254 Fr and BLS12-381 Fr, both K5 variants (wide and
               split) at B = 1, 2, 3, 127, 128, 129, 2047, 2048, 16895,
               16896, 16897 and 2^16 and around the wrapper's switch
               (`SPLIT_MAX_B`), and K5 on the BLS12-381 Fr golden vector
@@ -69,9 +72,11 @@ Phases:
               time of each level of two more warm builds (CUDA events)
   6b. widths  K5 and K6 at state widths 2, 4, 5, 6, 7 (searched round
               numbers), 9 and 17 over BN254 Fr and 5, 9 and 17 over
-              BLS12-381 Fr, K7 at 2, 4, 8 and 12 over BN254 Fr, each on
+              BLS12-381 Fr, K7 at 2, 4, 8 and 12 over both fields, each on
               2^16 states against its plain version (on the first 4096 past
-              width 4), bit-exact, with its time and bound; state 3 gives
+              width 4), bit-exact, with its time and bound (K7's also with
+              its linear layers' least additions); state 2 is every element
+              p - 1 (K7's worst case); state 3 gives
               K5's last MDS product its largest inputs (every Montgomery
               word p - 1), which a K5 that reduced a row once whole would
               get wrong at BLS12-381 Fr width 17; then, launch counters
@@ -80,8 +85,12 @@ Phases:
               `permute_optimized` and `hash` and `Poseidon2.create(spec,
               arity)` `permute` and `hash` at each of those widths; every
               (kernel, width) must launch
-  7. kzg      K8 against its plain version on one stage of 2^12 BN254 Fr
-              points (batch 1 and 4), both NTT routes at 2^10 and 2^12, K9
+  7. kzg      K8 against its plain version: the one-launch transform at
+              2^10 and 2^12 BN254 Fr points, forward and inverse, batch 1
+              and 4, with its bound, and one stage of 2^12 (batch 1 and
+              4); a transform below 2^13 through `ntt._ntt_core` must be
+              one K8 launch and no K1 launch; both NTT routes at 2^10 and
+              2^12 with their event and device times, K9
               against its plain version on the G1 fold of a 2^16-point
               commit, the Fq2 fold of phase 5's B2 MSM and a fold at the
               smallest chunk length r = 1 (bit-exact), with the cost of
@@ -187,14 +196,22 @@ def _ptxas_key(entry_name: str):
 
 def _poseidon_ptxas_key(entry_name: str):
     """(kernel, template arguments) of a mangled entry name of the Poseidon
-    kernels, e.g. ("slot_kernel", (0, 8)), ("poseidon_opt_kernel", (3, 8))
-    or ("permute_kernel", (2, 12, 8)), or None for the other kernels."""
+    kernels and K8's transform, e.g. ("slot_kernel", (0, 8)),
+    ("poseidon_opt_kernel", (3, 8)), ("poseidon2_kernel", (12, 8)) (K7 on
+    F1c; "poseidon2_kernel_f1" on F1) or ("ntt_transform_kernel", (8,))
+    (on F1c), or None for the other kernels."""
     import re
 
-    m = re.search(r"\d(slot_kernel|permute_kernel|poseidon_wide_kernel|poseidon_split_kernel|poseidon_opt_kernel)"
+    m = re.search(r"\d(slot_kernel|poseidon_wide_kernel|poseidon_split_kernel|poseidon_opt_kernel)"
                   r"I((?:Li\d+E)+)E",
                   entry_name)
-    return None if m is None else (m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2))))
+    if m is not None:
+        return m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2)))
+    m = re.search(r"\d(poseidon2_kernel|ntt_transform_kernel)I(3F1c|2F1)ILi\d+EE((?:Li\d+E)+)E", entry_name)
+    if m is None:
+        return None
+    return (m.group(1) + ("_f1" if m.group(2) == "2F1" else ""),
+            tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(3))))
 
 
 def phase_build():
@@ -877,7 +894,24 @@ def _mac_group(spec) -> int:
     return (2**33 - 1) // ((spec.modulus >> (16 * spec.n_limbs - 32)) + 1)
 
 
-def _perm_words(name, perm) -> float:
+def _p2_addition_issues(perm) -> int:
+    """Word issues per state of Poseidon2's linear layers, the least they
+    need: one NW-word addition (NW issues) per term of each layer's
+    cheapest chain, and one reduction per output counted as one more
+    NW-word subtraction. External layer: at width 2 or 3 the sum (W - 1
+    additions) and x_i + sum (W); at width 4k M4's chain on each block (8
+    additions and 4 doublings), the block sums (4 (k - 1)) and x + sum
+    (W); internal layer: the sum (W - 1) and sum + diag_i x_i (W, the
+    small product taken as one term). R_F + 1 external layers, R_P
+    internal."""
+    w, nw = perm.width, perm.spec.n_limbs // 2
+    ext = 2 * w - 1 if w in (2, 3) else 12 * (w // 4) + 4 * (w // 4 - 1) + w
+    internal = 2 * w - 1
+    layers = (perm.full_rounds + 1) * (ext + w) + perm.partial_rounds * (internal + w)
+    return layers * nw
+
+
+def _perm_words(name, perm, additions: bool = False) -> float:
     """32x32-bit word products per state of kernel `name` on `perm`, the
     least its function needs: an S-box x^5 is 2 Montgomery squares and a
     product (`_mont_words`); a matrix row of n products is n
@@ -885,7 +919,10 @@ def _perm_words(name, perm) -> float:
     NW/2) for each group of up to `_mac_group` of them. K5: a dense row of
     W for each element of each round; K6: dense rows in the full rounds,
     and in each partial round a row of W (w_hat) and W - 1 rows of one
-    (v_rest); Poseidon2's matrices take additions only."""
+    (v_rest); Poseidon2's matrices take additions only. With `additions`,
+    K7 also counts its linear layers' least word additions
+    (`_p2_addition_issues`), each one issue, that is half a word product
+    (two multiply issues) of the bound's rate."""
     w, rf, rp = perm.width, perm.full_rounds, perm.partial_rounds
     nw, group = perm.spec.n_limbs // 2, _mac_group(perm.spec)
 
@@ -896,15 +933,19 @@ def _perm_words(name, perm) -> float:
     matrices = {"poseidon_permute": rows((rf + rp) * w, w),
                 "poseidon_permute_opt": rows(rf * w, w) + rp * (rows(1, w) + rows(w - 1, 1)),
                 "poseidon2_permute": 0}[name]
-    return _mont_words(perm.spec.n_limbs, sboxes, 2 * sboxes) + matrices
+    extra = _p2_addition_issues(perm) / 2 if additions and name == "poseidon2_permute" else 0
+    return _mont_words(perm.spec.n_limbs, sboxes, 2 * sboxes) + matrices + extra
 
 
 #: {(field, width): {kernel: (ms, work)}} of phases 6 and 6b: K6 beside K5
 PERM_RUNS = {}
+#: {(field, width): (ms, device ms, work with the linear layers' additions)}
+#: of K7 in phases 6 and 6b
+K7_LINEAR = {}
 #: phase 2's ptxas keys of the width-3 Poseidon kernels
 WIDTH3_PTXAS = {"poseidon_permute": ("poseidon_wide_kernel", (3, 8)),
                 "poseidon_permute_opt": ("poseidon_opt_kernel", (3, 8)),
-                "poseidon2_permute": ("permute_kernel", (2, 3, 8))}
+                "poseidon2_permute": ("poseidon2_kernel", (3, 8))}
 
 
 def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, log_full: int = 19,
@@ -948,6 +989,20 @@ def phase_hash(all_kernels, device="cuda", log_b: int = 16, height: int = 20, lo
                (B * per_state[name], 2 * x.numel() * 4), kern, WIDTH3_PTXAS[name])
         PERM_RUNS.setdefault(("bn254_fr", 3), {})[name] = (ms, (B * per_state[name], 2 * x.numel() * 4))
         plain_out[name] = (exp, pms)
+    k7 = results["poseidon2_permute"][-1]
+    K7_LINEAR["bn254_fr", 3] = (k7[1], k7[5], (B * _perm_words("poseidon2_permute", perm2, True), 2 * x.numel() * 4))
+
+    # K7 on the worst-case state, every element p - 1, at every built width
+    # over both 16-limb scalar fields (129 states: a block and one more)
+    for spec in (BN254_FR, BLS12_381_FR):
+        for w in poseidon2_kernel.KERNEL_WIDTHS:
+            p2 = Poseidon2.create(spec, w - 1, device=dev)
+            worst = limb.tensor(limb.pack_mont(spec, [spec.modulus - 1]), dev).reshape(-1, 1, 1)
+            worst = worst.expand(-1, w, 129).contiguous()
+            if not torch.equal(poseidon2_kernel.permute(p2, worst), poseidon2_kernel.poseidon2_permute_plain(p2, worst)):
+                fail(f"K7 differs from its plain version on the worst-case state, {spec.name} width {w}")
+    log(f"[hash] K7 bit-equal to its plain version on the worst-case state (every element p - 1) at widths "
+        f"{', '.join(map(str, poseidon2_kernel.KERNEL_WIDTHS))} over bn254_fr and bls12_381_fr")
 
     # both K5 variants at the batch sizes around a block of 128 states, a
     # narrow Merkle level and the wrapper's switch between them, against the
@@ -1062,6 +1117,7 @@ WIDTHS = (
     ("bn254_fr", ("poseidon_permute", "poseidon_permute_opt"), (2, 4, 5, 6, 7, 9, 17)),
     ("bls12_381_fr", ("poseidon_permute", "poseidon_permute_opt"), (5, 9, 17)),
     ("bn254_fr", ("poseidon2_permute",), (2, 4, 8, 12)),
+    ("bls12_381_fr", ("poseidon2_permute",), (2, 4, 8, 12)),
 )
 
 
@@ -1085,7 +1141,7 @@ def _ptxas_runs(name, width):
     """Phase 2's ptxas key of the instantiation that runs kernel `name` at
     a `width` other than 3."""
     if name == "poseidon2_permute":
-        return ("permute_kernel", (2, width, 8))
+        return ("poseidon2_kernel", (width, 8))
     return ("slot_kernel", (0 if name == "poseidon_permute" else 1, 8))
 
 
@@ -1152,6 +1208,9 @@ def phase_widths(all_kernels, device="cuda", log_b: int = 16, check_b: int = 409
                        (B * per_state, 2 * x.numel() * 4), lambda: kern(perm, x),
                        _ptxas_runs(name, w))
                 PERM_RUNS.setdefault((field, w), {})[name] = (ms, (B * per_state, 2 * x.numel() * 4))
+                if name == "poseidon2_permute":
+                    K7_LINEAR[field, w] = (ms, results[name][-1][5],
+                                           (B * _perm_words(name, perm, True), 2 * x.numel() * 4))
 
     # the entry points, launch counters zeroed before and read after
     for k in all_kernels:
@@ -1247,6 +1306,48 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
     spec, g1, r = pairing.g1.scalar, pairing.g1, pairing.r
     name = pairing.name
 
+    # K8: the one-launch transform (the per-stage route's launch) at 2^12
+    # and 2^10, forward and inverse, batch 1 and 4; 2^12 forward at batch 1
+    # first, the row's headline. Bound: the larger of its Montgomery
+    # products (N/2 log2 N a column, N more for the inverse's scale) over
+    # the issue rate and the column read and written once
+    for log_n in (12, 10):
+        N = 1 << log_n
+        for inverse in (False, True):
+            rev, table, n_inv = ntt._plan(spec, log_n, inverse, dev)
+            for batch in (1, 4):
+                x = _rand_field(spec, batch << log_n, rng, dev).reshape(spec.n_limbs, N, batch)
+                x = x[:, :, 0].contiguous() if batch == 1 else x.contiguous()
+
+                def kern(x=x, table=table, rev=rev, n_inv=n_inv, inverse=inverse):
+                    return ntt_kernel.transform(spec, x, table, rev, n_inv, inverse)
+
+                got = kern()
+                exp = ntt_kernel.transform_plain(spec, x, table, rev, n_inv, inverse)
+                ms = _time(kern, reps * 5, dev)
+                pms = _time(lambda: ntt_kernel.transform_plain(spec, x, table, rev, n_inv, inverse), 3, dev)
+                blocks = ntt_kernel.cluster_size(N, batch, dev) if dev.type == "cuda" else ntt_kernel.CLUSTER[N]
+                products = batch * (N // 2 * log_n + (N if inverse else 0))
+                _check("butterfly", results, [got], [exp], ms, pms,
+                       f"{spec.name} transform 2^{log_n} ({'inverse' if inverse else 'forward'}, batch {batch}, "
+                       f"one launch, {blocks} blocks a transform)",
+                       (_mont_words(spec.n_limbs, products), 2 * batch * N * spec.n_limbs * 4), kern,
+                       ("ntt_transform_kernel", (8,)))
+    # a transform below the four-step threshold is one K8 launch, no K1
+    # (its tables are built once, by K1 products, for the tensor's device)
+    x = _rand_field(spec, 1 << 12, rng, dev)
+    for inverse in (False, True):
+        ntt._plan(spec, 12, inverse, x.device)
+    for k in (ntt_kernel.K8, ntt_kernel.K1):
+        k.reset()
+    for inverse in (False, True):
+        ntt._ntt_core(spec, x, inverse)
+    if dev.type == "cuda" and (ntt_kernel.K8.launches, ntt_kernel.K1.launches) != (2, 0):
+        fail(f"a forward and an inverse 2^12 transform made {ntt_kernel.K8.launches} K8 and "
+             f"{ntt_kernel.K1.launches} K1 launches, not 2 and 0")
+    log(f"[kzg] {spec.name} 2^12 forward and inverse through ntt._ntt_core: {ntt_kernel.K8.launches} K8 launches, "
+        f"{ntt_kernel.K1.launches} K1")
+
     # K8: one middle stage of a 2^12 transform, batch 1 and 4
     log_n = 12
     _, table, _ = ntt._plan(spec, log_n, False, dev)
@@ -1271,8 +1372,12 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
             fail(f"the NTT routes disagree at 2^{log_n}")
         t_stage = _time(lambda: ntt._ntt_core(spec, x, False), reps, dev)
         t_four = _time(lambda: ntt.fourstep_transform(spec, x, False), reps, dev)
-        log(f"[kzg] NTT 2^{log_n} {spec.name}: per-stage route (K8) {t_stage:.4f} ms, four-step route (K2) "
-            f"{t_four:.4f} ms; the same evaluations")
+        d_stage = _device_ms(lambda: ntt._ntt_core(spec, x, False), 10)
+        d_four = _device_ms(lambda: ntt.fourstep_transform(spec, x, False), 10)
+        dev_ms = ", ".join(f"{label} {v:.4f} ms" if v is not None else f"{label} not measured"
+                           for label, v in (("per-stage", d_stage), ("four-step", d_four)))
+        log(f"[kzg] NTT 2^{log_n} {spec.name}: per-stage route (one K8 launch) {t_stage:.4f} ms, four-step route "
+            f"(K2) {t_four:.4f} ms (CUDA events on the card); device time {dev_ms}; the same evaluations")
 
     # K9: the G1 fold of a 2^log_d-point commit, the Fq2 fold of phase 5's B2
     kzg = KZG(pairing, backend="device", device=dev)
@@ -1455,6 +1560,13 @@ def main() -> None:
             log(f"[bound] K6 against K5, {field} width {w}: K6 {k6:.4f} ms, {b6 / k6:.1%} of its bound "
                 f"{b6:.4f} ms; K5 {k5:.4f} ms, {b5 / k5:.1%} of {b5:.4f} ms; K6 / K5 {k6 / k5:.3f}")
 
+    for (field, w), (ms, dms, work) in K7_LINEAR.items():
+        b_lin = bound(work)[0]
+        b_prod = bound(PERM_RUNS[field, w]["poseidon2_permute"][1])[0]
+        dev = f", device {dms:.4f} ms ({b_prod / dms:.1%} / {b_lin / dms:.1%})" if dms else ""
+        log(f"[bound] K7 {field} width {w}: products-only bound {b_prod:.4f} ms, with the linear layers' least "
+            f"additions {b_lin:.4f} ms; kernel {ms:.4f} ms, {b_prod / ms:.1%} / {b_lin / ms:.1%} of them{dev}")
+
     def ptx(key):
         """{kernel: {"registers": R, "spill_bytes": S}} of a run's ptxas key(s)."""
         keys = [] if key is None else [key] if isinstance(key, tuple) else key
@@ -1495,6 +1607,9 @@ def main() -> None:
             # each run (2^17 and narrow products; every exponentiation case)
             # with its device time
             row["runs"] = [run_row(r) for r in runs]
+        if k.name == "poseidon2_permute":
+            # the bound that also counts the linear layers' least additions
+            row["bound_with_additions_ms"] = bound(K7_LINEAR["bn254_fr", 3][2])[0]
         if k.name in width_results:
             # phase 6b: each other state width's run, and the launches by
             # state width through the entry points

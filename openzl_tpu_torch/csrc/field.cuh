@@ -277,8 +277,8 @@ OZL_HD void mac_row(uint32_t* t, const uint32_t* a, uint32_t b, Carry& cc) {
 }
 
 // F1 with the Montgomery product and square on carry chains, the square
-// and the product-sum reduced once (K1's exponentiation, K3-K6 and K9; K1's
-// product, K2, K7 and K8 keep F1).
+// and the product-sum reduced once (K1's exponentiation, K3-K7, K8's
+// transform and K9; K1's product, K2 and K8's stage keep F1).
 // Needs p < 2^(32 NW - 1) - 2^(32 NW - 33) (top word below 0x7FFFFFFF:
 // BN254 Fr and Fq, BLS12-381 Fr), so that a CIOS step fits NW + 1 words.
 template <int NW>
@@ -442,6 +442,17 @@ struct F1c : F1<NW> {
     }
   }
 };
+
+// F1c's bound on p's top word (below it, the carry chains hold), and the
+// choice every kernel that has both fields makes: F1c where p's top word
+// is below the bound, F1 otherwise (and for one-word fields, which F1c
+// does not take)
+constexpr uint32_t kF1cTop = 0x7FFFFFFFu;
+
+template <int NW>
+inline bool carry_chains(const uint32_t* p) {
+  return NW >= 2 && p[NW - 1] < kF1cTop;
+}
 
 // a^e (Montgomery form, over F1 or F1c) for e given as little-endian 32-bit
 // words of bit length `bits` (0 for e = 0), MSB first: one x a for the top

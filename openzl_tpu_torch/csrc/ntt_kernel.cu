@@ -1,6 +1,6 @@
 // K1: elementwise Montgomery product and, through the same field code, the
-// Montgomery exponentiation; K2: batched M-point DIF NTT; K8: one radix-2
-// butterfly stage.
+// Montgomery exponentiation; K2: batched M-point DIF NTT; K8: a whole
+// transform below 2^13 in one launch, and one radix-2 butterfly stage.
 //
 // K1 replaces openzl_tpu/ops/ntt_kernel.py `_make_mul_kernel` (:56, through
 // `mont_mul()` :259 and `mont_scale()` :268). One thread per element; the
@@ -45,28 +45,47 @@
 // (n_limbs, log2 M, M/2) with entry j of stage s = w_M^(2^s j).
 //
 // K8 replaces `_make_butterfly_kernel` (:44, through `butterfly()` :244):
-// lo = u + t, hi = (u - t) w. The reference feeds it operands that XLA has
-// already split, gathered (the stage twiddles) and later interleaves; here
-// one launch is one whole constant-geometry (Pease) DIF stage of
-// ops/ntt.py `_ntt_core`: thread (k, b) reads x[k] and x[k + N/2] of batch
-// column b, takes the twiddle W[k & ~(2^s - 1)] from the (n_limbs, N/2)
-// root table by index, and writes lo to slot 2k and hi to slot 2k + 1, so
-// no gather, stack or reshape runs around a stage. One thread per
-// butterfly, words in registers, the CIOS product of field.cuh. Bound on
-// the card: bytes (u and t read, lo and hi written, 16 bytes per 32-bit
-// word each; the table is small and L2-resident) against one Montgomery
-// product per butterfly, so a stage is a streaming pass; the design
-// touches each element once per stage. Strides make the same kernel the
-// elementwise butterfly (separate lo and hi arrays, a full twiddle array,
-// mask -1, batch 1).
+// lo = u + t, hi = (u - t) w, as the reference's per-stage route
+// (openzl_tpu/ops/ntt.py `_ntt_core` :109) runs it, one butterfly stage a
+// scan step. Two entry points:
+//   - `ozl_ntt_transform`, the per-stage route's one launch: a whole N-point
+//     transform, 2 <= N <= 2^12, of every column of x (n_limbs, N, B) in
+//     ONE launch (ntt.cuh `ntt_transform_block`): the column is loaded
+//     into shared memory as 32-bit words, every radix-2 stage runs there
+//     with a barrier between stages (Cooley-Tukey butterflies u + w t,
+//     u - w t in place, natural order in, the root table staged once in
+//     bit-reversed order so that group g of any stage reads entry g), and
+//     the store writes the bit-reversed slots to natural order, times 1/N
+//     for the inverse. Results are canonical, so they equal the plain
+//     version's Pease stages, gather and scale bit for bit. Not the
+//     Pease (constant-geometry) stages themselves: they write out of
+//     place, and two 2^12 columns of 8-word elements (256 KB) do not fit
+//     a block, where the in-place stages need one barrier a stage and
+//     read every twiddle without a bank conflict. What bounds it
+//     at batch 1: latency, not the card's issue or bytes: a 2^12 transform
+//     is 12 dependent stages of one product each, and a block holds one
+//     SM. The design splits a transform over a thread-block cluster of up
+//     to 8 blocks (`cluster`; `ops/ntt_kernel.py` CLUSTER): the first
+//     log2 C stages pair slots across blocks through distributed shared
+//     memory, with a cluster barrier, and the rest stay in each block's
+//     own slots; and it replaces the stage-a-launch route's log2 N + 2
+//     launches, whose time was the host's (PERF.md). At 2^12 one block's slots
+//     and the table fill 192 KB of the 227 KB a block can have. F1c where
+//     p's top word allows, F1 otherwise; 16-limb fields only.
+//   - `ozl_butterfly`, one whole constant-geometry (Pease) DIF stage a
+//     launch (`ntt_kernel.stage`), and with strides the elementwise
+//     butterfly: thread (k, b) reads x[k] and x[k + N/2] of batch column
+//     b, takes the twiddle W[k & ~(2^s - 1)] from the (n_limbs, N/2) root
+//     table by index, and writes lo to slot 2k and hi to slot 2k + 1. One
+//     thread per butterfly, words in registers, the CIOS product of
+//     field.cuh; bound by bytes (u and t read, lo and hi written).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "ntt.cuh"
 
 namespace {
-
-// p's top word below this: F1c's carry chains hold (field.cuh)
-constexpr uint32_t kF1cTop = 0x7FFFFFFFu;
 
 template <class F, int NW>
 OZL_HD F make_field(const FieldParams<NW>& f) {
@@ -93,13 +112,6 @@ __global__ void mont_pow_kernel(int32_t* out, const int32_t* a, int64_t N, const
   if (i >= N) return;
   const F Fd = make_field<F, NW>(f);
   store_fp<NW>(out, N, i, pow_bits(Fd, load_fp<NW>(a, N, i), e, bits, one));
-}
-
-// F1c where p's top word is below its bound, F1 otherwise (and for
-// one-word fields, which F1c does not take)
-template <int NW>
-bool carry_chains(const uint32_t* p) {
-  return NW >= 2 && p[NW - 1] < kF1cTop;
 }
 
 template <int NW>
@@ -267,6 +279,88 @@ int launch_butterfly(const void* u, const void* t, int64_t in_ls, const void* tw
   return (int)cudaGetLastError();
 }
 
+// K8's transform: the contexts of ntt_transform_block (ntt.cuh) for one
+// block and for a block of a cluster (distributed shared memory)
+struct BlockCtx {
+  int t, T, r, C;
+  uint32_t* data;
+  __device__ uint32_t* slots(int) const { return data; }
+  __device__ void sync_block() const { __syncthreads(); }
+  __device__ void sync_cluster() const { __syncthreads(); }
+};
+
+struct ClusterCtx {
+  int t, T, r, C;
+  uint32_t* data;
+  __device__ uint32_t* slots(int k) const { return cooperative_groups::this_cluster().map_shared_rank(data, k); }
+  __device__ void sync_block() const { __syncthreads(); }
+  __device__ void sync_cluster() const { cooperative_groups::this_cluster().sync(); }
+};
+
+// One N-point transform per cluster of C blocks (C = 1: one block), column
+// b = blockIdx.x / C; shared memory holds the block's slots, then the
+// twiddles (ntt.cuh). At most 512 threads a block: a 1024-thread bound caps
+// a thread at 64 registers, and the butterfly then spills
+template <class F, int NW>
+__global__ void __launch_bounds__(512)
+    ntt_transform_kernel(int32_t* out, const int32_t* x, const int32_t* table, const int32_t* n_inv, int L,
+                         int64_t B, int C, FieldParams<NW> f) {
+  extern __shared__ uint32_t sm[];
+  const int S = (1 << L) / C;
+  const F Fd = make_field<F, NW>(f);
+  const int r = (int)(blockIdx.x % C);
+  const int64_t b = blockIdx.x / C;
+  if (C == 1) {
+    BlockCtx ctx{(int)threadIdx.x, (int)blockDim.x, 0, 1, sm};
+    ntt_transform_block<F, NW>(Fd, ctx, sm, sm + NW * S, x, table, n_inv, out, L, B, b);
+  } else {
+    ClusterCtx ctx{(int)threadIdx.x, (int)blockDim.x, r, C, sm};
+    ntt_transform_block<F, NW>(Fd, ctx, sm, sm + NW * S, x, table, n_inv, out, L, B, b);
+  }
+}
+
+// blocks of min(S / 2, 512) threads; clusters through cudaLaunchKernelEx
+template <class F, int NW>
+int start_transform(void* out, const void* x, const void* table, const void* n_inv, int L, int64_t B, int C,
+                    const FieldParams<NW>& f, cudaStream_t st) {
+  const int S = (1 << L) / C;
+  const size_t smem = sizeof(uint32_t) * NW * ((size_t)S + (1 << L) / 2);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(ntt_transform_kernel<F, NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * C));
+  cfg.blockDim = dim3((unsigned)(S / 2 < 512 ? S / 2 : 512));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, ntt_transform_kernel<F, NW>, (int32_t*)out, (const int32_t*)x,
+                                     (const int32_t*)table, (const int32_t*)n_inv, L, B, C, f);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// 2 <= N = 2^L <= kTransformMax, C a power of two with 2 <= N / C, at most 8
+constexpr int kTransformMax = 1 << 12;
+
+template <int NW>
+int launch_transform(void* out, const void* x, const void* table, const void* n_inv, int L, int64_t B, int C,
+                     const uint32_t* p, uint32_t n0, cudaStream_t st) {
+  if (L < 1 || (1 << L) > kTransformMax || C < 1 || C > 8 || (C & (C - 1)) || (1 << L) / C < 2)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaGetLastError();
+  const FieldParams<NW> f = make_params<NW>(p, n0);
+  if (carry_chains<NW>(p)) return start_transform<F1c<NW>, NW>(out, x, table, n_inv, L, B, C, f, st);
+  return start_transform<F1<NW>, NW>(out, x, table, n_inv, L, B, C, f, st);
+}
+
 }  // namespace
 
 extern "C" int ozl_butterfly(const void* u, const void* t, int64_t in_ls, const void* tw,
@@ -331,4 +425,16 @@ extern "C" int ozl_small_ntt(void* out, const void* x, const void* stage_tw, con
     case 24: return launch_small_ntt<12>(out, x, stage_tw, post_tw, M, lanes, pw, n0, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The N = 2^log_n point transform of every column of x (n_limbs, N, B)
+// into out, natural order in and out, with the root table (n_limbs, N/2)
+// of W[j] = w^j and, for the inverse, the 1/N scale n_inv (n_limbs, or
+// null); `cluster` blocks a transform. 16-limb fields only.
+extern "C" int ozl_ntt_transform(void* out, const void* x, const void* table, const void* n_inv, int log_n,
+                                 int64_t B, int cluster, int n_limbs, const void* p, uint32_t n0,
+                                 void* stream) {
+  if (n_limbs != 16) return (int)cudaErrorInvalidValue;
+  return launch_transform<8>(out, x, table, n_inv, log_n, B, cluster, (const uint32_t*)p, n0,
+                             (cudaStream_t)stream);
 }

@@ -339,88 +339,217 @@ OZL_HD int poseidon_opt_words(int W, int full_rounds, int partial_rounds, int NW
           partial_rounds * (W - 1)) * NW;
 }
 
-// c x for a small non-negative integer c, by doublings and additions
+// ---------------------------------------------------------------------------
+// K7, Poseidon2: lazily reduced linear layers
+// ---------------------------------------------------------------------------
+
+// A linear-layer value in NW + 1 words: sums of field elements and their
+// small-integer multiples, carried in one extra word and reduced once
 template <int NW>
-OZL_HD Fp<NW> small_mul(const F1<NW>& F, const Fp<NW>& x, uint32_t c) {
-  Fp<NW> acc = F1<NW>::zero();
-  Fp<NW> d = x;
-  while (c) {
-    if (c & 1) acc = F.add(acc, d);
-    c >>= 1;
-    if (c) d = F.dbl(d);
-  }
-  return acc;
+struct Wide {
+  uint32_t w[NW + 1];
+};
+
+template <int NW>
+OZL_HD Wide<NW> widen(const Fp<NW>& a) {
+  Wide<NW> r;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r.w[j] = a.w[j];
+  r.w[NW] = 0;
+  return r;
+}
+
+// a + b, b a field element
+template <int NW>
+OZL_HD Wide<NW> wide_add(const Wide<NW>& a, const Fp<NW>& b) {
+  Wide<NW> r;
+  Carry cc;
+  r.w[0] = add_cc(a.w[0], b.w[0], cc);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) r.w[j] = addc_cc(a.w[j], b.w[j], cc);
+  r.w[NW] = addc(a.w[NW], 0, cc);
+  return r;
+}
+
+template <int NW>
+OZL_HD Wide<NW> wide_add(const Wide<NW>& a, const Wide<NW>& b) {
+  Wide<NW> r;
+  Carry cc;
+  r.w[0] = add_cc(a.w[0], b.w[0], cc);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) r.w[j] = addc_cc(a.w[j], b.w[j], cc);
+  r.w[NW] = addc(a.w[NW], b.w[NW], cc);
+  return r;
+}
+
+// a 2^s for s < 32 (funnel shifts; the value stays below 2^(32 NW + 32))
+template <int NW>
+OZL_HD Wide<NW> wide_shl(const Wide<NW>& a, int s) {
+  Wide<NW> r;
+#pragma unroll
+  for (int j = NW; j > 0; --j) r.w[j] = (a.w[j] << s) | (a.w[j - 1] >> (32 - s));
+  r.w[0] = a.w[0] << s;
+  return r;
+}
+
+
+// a + c x for a word c: one row of word products (mac_row, 2 NW multiply
+// issues), the sum known to fit in NW + 1 words
+template <int NW>
+OZL_HD Wide<NW> wide_mac(const Wide<NW>& a, const Fp<NW>& x, uint32_t c) {
+  Wide<NW> r = a;
+  Carry cc;
+  mac_row<NW>(r.w, x.w, c, cc);
+  return r;
+}
+
+OZL_HD uint64_t umulhi64(uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+  return __umul64hi(a, b);
+#else
+  return (uint64_t)(((unsigned __int128)a * b) >> 64);
+#endif
+}
+
+// floor((2^64 - 1) / (p_top + 1)): the reciprocal reduce_wide estimates a
+// quotient with (computed on the host, once a launch)
+inline uint64_t quotient_mu(uint32_t p_top) { return ~0ull / ((uint64_t)p_top + 1); }
+
+// v mod p, canonical, for v < K p with K < 2^15, by one small-quotient
+// subtraction. With T = floor(v / 2^(32 NW - 32)) (v's top two words),
+// q' = floor(T mu / 2^64) underestimates v / p by less than K / p_top +
+// 2^-24 < 1 (p_top >= 2^16 for a 16-limb field, 2^29 for the built
+// ones), so q' is q = floor(v / p) or q - 1: v - q' p < 2p, and one
+// conditional subtraction of p finishes. Cost: one 64-bit high product, one
+// row of NW word products (q' p), an (NW + 1)-word subtraction and a
+// conditional one, against a reduced addition per term before
+template <int NW>
+OZL_HD Fp<NW> reduce_wide(const FieldParams<NW>& f, uint64_t mu, const Wide<NW>& v) {
+  const uint64_t top = ((uint64_t)v.w[NW] << 32) | v.w[NW - 1];
+  const uint32_t q = (uint32_t)umulhi64(top, mu);
+  uint32_t m[NW + 1];
+#pragma unroll
+  for (int j = 0; j <= NW; ++j) m[j] = 0;
+  Carry cc;
+  mac_row<NW>(m, f.p, q, cc);
+  uint32_t r[NW + 1];
+  r[0] = sub_cc(v.w[0], m[0], cc);
+#pragma unroll
+  for (int j = 1; j <= NW; ++j) r[j] = subc_cc(v.w[j], m[j], cc);
+  Fp<NW> d;
+  d.w[0] = sub_cc(r[0], f.p[0], cc);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) d.w[j] = subc_cc(r[j], f.p[j], cc);
+  subc_cc(r[NW], 0, cc);
+  const uint32_t borrow = subc(0, 0, cc);
+#pragma unroll
+  for (int j = 0; j < NW; ++j) d.w[j] = borrow ? r[j] : d.w[j];
+  return d;
+}
+
+// The S-box input x + k (x, k < p). On F1c (p < R / 2) the sum is left
+// unreduced: x + k < 2p < R, and F1c's square takes x < 2p (x^2 < 4 p^2,
+// 4 p < 2 R, the bound of F1c::redc) and its product x^4 x one operand
+// below 2p (the CIOS sum stays below x^4 (2p) / R + p < 2p). F1 takes
+// reduced operands only.
+template <int NW>
+OZL_HD Fp<NW> sbox_in(const F1c<NW>&, const Fp<NW>& x, const Fp<NW>& k) {
+  Fp<NW> r;
+  Carry cc;
+  r.w[0] = add_cc(x.w[0], k.w[0], cc);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) r.w[j] = addc_cc(x.w[j], k.w[j], cc);
+  return r;
+}
+
+template <int NW>
+OZL_HD Fp<NW> sbox_in(const F1<NW>& F, const Fp<NW>& x, const Fp<NW>& k) {
+  return F.add(x, k);
 }
 
 // M4 = [[5, 7, 1, 3], [4, 6, 1, 1], [1, 3, 5, 7], [1, 1, 4, 6]] on x[0 .. 3]
-// in place, by eight additions and four doublings (Poseidon2 paper,
-// appendix B)
+// (each < p), by the Poseidon2 paper's chain (appendix B) of eight
+// additions and four doublings, all unreduced: t0, t1 < 2p, t2, t3 < 4p,
+// t4, t5 < 12p, y0, y2 < 16p, y1, y3 < 12p
 template <int NW>
-OZL_HD void m4_apply(const F1<NW>& F, Fp<NW>* x) {
-  const Fp<NW> t0 = F.add(x[0], x[1]), t1 = F.add(x[2], x[3]);
-  const Fp<NW> t2 = F.add(F.dbl(x[1]), t1), t3 = F.add(F.dbl(x[3]), t0);
-  const Fp<NW> t4 = F.add(F.dbl(F.dbl(t1)), t3), t5 = F.add(F.dbl(F.dbl(t0)), t2);
-  x[0] = F.add(t3, t5);
-  x[1] = t5;
-  x[2] = F.add(t2, t4);
-  x[3] = t4;
+OZL_HD void m4_lazy(const Fp<NW>* x, Wide<NW>* y) {
+  const Wide<NW> t0 = wide_add(widen(x[0]), x[1]), t1 = wide_add(widen(x[2]), x[3]);
+  const Wide<NW> t2 = wide_add(t1, wide_shl(widen(x[1]), 1));
+  const Wide<NW> t3 = wide_add(t0, wide_shl(widen(x[3]), 1));
+  const Wide<NW> t4 = wide_add(t3, wide_shl(t1, 2)), t5 = wide_add(t2, wide_shl(t0, 2));
+  y[0] = wide_add(t3, t5);
+  y[1] = t5;
+  y[2] = wide_add(t2, t4);
+  y[3] = t4;
 }
 
-// Poseidon2 external layer M_E: at width 2 or 3 circ(2, 1[, 1]), x_i +
-// sum x; at width 4k, 2 M4 blocks on the diagonal and M4 off it, which is
-// M4 on each block of four plus, at each of the four positions, the sum
-// of the blocks' results there
+// Poseidon2 external layer M_E on x (each < p), every output reduced once:
+// at width 2 or 3 circ(2, 1[, 1]), x_i + sum x (< (W + 1) p); at width 4k
+// 2 M4 blocks on the diagonal and M4 off it, which is M4 on each block of
+// four plus, at each of the four positions, the sum of the blocks'
+// results there (< 16 p (k + 1), 64 p at width 12)
 template <int W, int NW>
-OZL_HD void ext_layer(const F1<NW>& F, Fp<NW> (&x)[W]) {
+OZL_HD void ext_layer(const FieldParams<NW>& f, uint64_t mu, Fp<NW> (&x)[W]) {
   static_assert(W == 2 || W == 3 || W % 4 == 0, "Poseidon2 takes width 2, 3 or 4k");
   if constexpr (W % 4 == 0) {
+    Wide<NW> y[W];
 #pragma unroll
-    for (int b = 0; b < W; b += 4) m4_apply<NW>(F, x + b);
+    for (int b = 0; b < W; b += 4) m4_lazy<NW>(x + b, y + b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      Fp<NW> s = x[i];
+      Wide<NW> s = y[i];
 #pragma unroll
-      for (int b = 4; b < W; b += 4) s = F.add(s, x[b + i]);
+      for (int b = 4; b < W; b += 4) s = wide_add(s, y[b + i]);
 #pragma unroll
-      for (int b = 0; b < W; b += 4) x[b + i] = F.add(x[b + i], s);
+      for (int b = 0; b < W; b += 4) x[b + i] = reduce_wide<NW>(f, mu, wide_add(y[b + i], s));
     }
   } else {
-    Fp<NW> s = x[0];
+    Wide<NW> s = wide_add(widen(x[0]), x[1]);
 #pragma unroll
-    for (int i = 1; i < W; ++i) s = F.add(s, x[i]);
+    for (int i = 2; i < W; ++i) s = wide_add(s, x[i]);
 #pragma unroll
-    for (int i = 0; i < W; ++i) x[i] = F.add(x[i], s);
+    for (int i = 0; i < W; ++i) x[i] = reduce_wide<NW>(f, mu, wide_add(s, x[i]));
   }
 }
 
-// K7 rounds over [ext keys (R_F, W, NW); int keys (R_P, NW); diag (W,)]:
-// one external layer, R_F / 2 external rounds (add keys, S-box all,
-// external layer), R_P internal rounds (add a key to x_0, S-box x_0,
-// sum x + diag_i x_i), R_F / 2 external rounds
+// Poseidon2 internal layer sum x + diag_i x_i (each x_j < p), each output
+// one row of word products on the shared sum and one reduction: below
+// (W + diag_i) p, at most 34 p (BLS12-381 Fr width 8: 8 + 26)
 template <int W, int NW>
-OZL_HD void poseidon2_rounds(const F1<NW>& F, Fp<NW> (&x)[W], const uint32_t* c, int full_rounds,
+OZL_HD void int_layer(const FieldParams<NW>& f, uint64_t mu, Fp<NW> (&x)[W], const uint32_t* diag) {
+  Wide<NW> s = wide_add(widen(x[0]), x[1]);
+#pragma unroll
+  for (int i = 2; i < W; ++i) s = wide_add(s, x[i]);
+#pragma unroll
+  for (int i = 0; i < W; ++i) x[i] = reduce_wide<NW>(f, mu, wide_mac(s, x[i], diag[i]));
+}
+
+// K7 rounds over [ext keys (R_F, W, NW); int keys (R_P, NW); diag (W,)]
+// on Fd = F1c or F1 (`carry_chains`): one external layer, R_F / 2
+// external rounds (add keys, S-box all, external layer), R_P internal
+// rounds (add a key to x_0, S-box x_0, sum x + diag_i x_i), R_F / 2
+// external rounds. Every layer output is canonical; mu = quotient_mu(p's
+// top word)
+template <class Fd, int W, int NW>
+OZL_HD void poseidon2_rounds(const Fd& F, uint64_t mu, Fp<NW> (&x)[W], const uint32_t* c, int full_rounds,
                              int partial_rounds) {
   const int half = full_rounds / 2;
   const uint32_t* ext_keys = c;
   const uint32_t* int_keys = c + (size_t)full_rounds * W * NW;
   const uint32_t* diag = int_keys + (size_t)partial_rounds * NW;
-  ext_layer<W, NW>(F, x);
+  ext_layer<W, NW>(F.f, mu, x);
 #pragma unroll 1
   for (int r = 0; r < full_rounds + partial_rounds; ++r) {
     const bool external = r < half || r >= half + partial_rounds;
     const uint32_t* k = external ? ext_keys + (size_t)(r < half ? r : r - partial_rounds) * W * NW
                                  : int_keys + (size_t)(r - half) * NW;
-    x[0] = pow5(F, F.add(x[0], word_fp<NW>(k)));
+    x[0] = pow5(F, sbox_in(F, x[0], word_fp<NW>(k)));
     if (external) {
 #pragma unroll
-      for (int j = 1; j < W; ++j) x[j] = pow5(F, F.add(x[j], word_fp<NW>(k + j * NW)));
-      ext_layer<W, NW>(F, x);
+      for (int j = 1; j < W; ++j) x[j] = pow5(F, sbox_in(F, x[j], word_fp<NW>(k + j * NW)));
+      ext_layer<W, NW>(F.f, mu, x);
     } else {
-      Fp<NW> s = x[0];
-#pragma unroll
-      for (int i = 1; i < W; ++i) s = F.add(s, x[i]);
-#pragma unroll
-      for (int i = 0; i < W; ++i) x[i] = F.add(s, small_mul(F, x[i], diag[i]));
+      int_layer<W, NW>(F.f, mu, x, diag);
     }
   }
 }
@@ -429,55 +558,48 @@ OZL_HD int poseidon2_words(int W, int full_rounds, int partial_rounds, int NW) {
   return (full_rounds * W + partial_rounds) * NW + W;
 }
 
-// K7 runs through permute_kernel (one instantiation a width, over F1); K5
-// and K6 have their own register kernels at width 3 (poseidon_kernel.cu),
-// and run through slot_kernel at the other widths.
-enum PermKind { kPoseidon = 0, kPoseidonOpt = 1, kPoseidon2 = 2 };
-
-template <int KIND, int W, int NW>
-OZL_HD void run_rounds(const FieldParams<NW>& f, Regs<W, NW>& x, const uint32_t* c, int full_rounds,
-                       int partial_rounds) {
-  static_assert(KIND == kPoseidon2, "permute_kernel runs K7");
-  const F1<NW> F{f};
-  poseidon2_rounds<W, NW>(F, x.v, c, full_rounds, partial_rounds);
-}
+// K5 and K6 kernels: their own register kernels at width 3
+// (poseidon_kernel.cu), slot_kernel at the other widths
+enum PermKind { kPoseidon = 0, kPoseidonOpt = 1 };
 
 #ifdef __CUDACC__
-// One thread per state: stage the constants in shared memory (every thread
-// of the block reaches the barrier), load the state, run the rounds, store.
-template <int KIND, int W, int NW>
-__global__ void permute_kernel(int32_t* out, const int32_t* in, const int32_t* consts, int64_t B,
-                               int full_rounds, int partial_rounds, int n_words,
-                               FieldParams<NW> f) {
+// K7, one thread per state: stage the constants in shared memory (every
+// thread of the block reaches the barrier), load the state, run the
+// rounds on Fd, store.
+template <class Fd, int W, int NW>
+__global__ void poseidon2_kernel(int32_t* out, const int32_t* in, const int32_t* consts, int64_t B,
+                                 int full_rounds, int partial_rounds, int n_words, FieldParams<NW> f,
+                                 uint64_t mu) {
   extern __shared__ uint32_t sm[];
   for (int e = threadIdx.x; e < n_words; e += blockDim.x) sm[e] = (uint32_t)consts[e];
   __syncthreads();
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  Regs<W, NW> x;
-  load_state<W, NW>(x.v, in, B, b);
-  run_rounds<KIND, W, NW>(f, x, sm, full_rounds, partial_rounds);
-  store_state<W, NW>(out, B, b, x.v);
+  Fd F;
+  F.f = f;
+  Fp<NW> x[W];
+  load_state<W, NW>(x, in, B, b);
+  poseidon2_rounds<Fd, W, NW>(F, mu, x, sm, full_rounds, partial_rounds);
+  store_state<W, NW>(out, B, b, x);
 }
 
-// Launch on `st` with 128 threads a block and the constants in shared
+// Launch K7 on `st` with 128 threads a block and the constants in shared
 // memory; returns cudaGetLastError().
-template <int KIND, int W, int NW>
-int launch_permute(void* out, const void* in, const void* consts, int64_t B, int full_rounds,
-                   int partial_rounds, int n_words, const uint32_t* p, uint32_t n0,
-                   cudaStream_t st) {
+template <class Fd, int W, int NW>
+int launch_poseidon2(void* out, const void* in, const void* consts, int64_t B, int full_rounds,
+                     int partial_rounds, int n_words, const uint32_t* p, uint32_t n0, cudaStream_t st) {
   constexpr int threads = 128;
   const size_t smem = sizeof(uint32_t) * (size_t)n_words;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(permute_kernel<KIND, W, NW>,
+    cudaError_t e = cudaFuncSetAttribute(poseidon2_kernel<Fd, W, NW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int64_t blocks = (B + threads - 1) / threads;
   if (blocks > 0)
-    permute_kernel<KIND, W, NW><<<(unsigned)blocks, threads, smem, st>>>(
+    poseidon2_kernel<Fd, W, NW><<<(unsigned)blocks, threads, smem, st>>>(
         (int32_t*)out, (const int32_t*)in, (const int32_t*)consts, B, full_rounds, partial_rounds,
-        n_words, make_params<NW>(p, n0));
+        n_words, make_params<NW>(p, n0), quotient_mu(p[NW - 1]));
   return (int)cudaGetLastError();
 }
 

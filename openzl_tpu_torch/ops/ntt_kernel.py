@@ -1,6 +1,7 @@
 """Kernels K1 (elementwise Montgomery product, and the Montgomery
 exponentiation through the same field code), K2 (batched small NTT) and
-K8 (radix-2 butterfly stage).
+K8 (radix-2 butterflies: a whole transform below 2^13 in one launch, and
+one stage).
 
 Port of `openzl_tpu/ops/ntt_kernel.py`. The CUDA sources are
 `openzl_tpu_torch/csrc/ntt_kernel.cu` (design notes there); this module
@@ -356,4 +357,84 @@ def stage(spec: FieldSpec, x, table, s: int):
         spec, x.data_ptr(), x.data_ptr() + H * B * word, ls, table, _stage_mask(s),
         out.data_ptr(), out.data_ptr() + B * word, ls, 2 * B, H, B, x,
     )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8: a whole transform below 2^13 in one launch
+# ---------------------------------------------------------------------------
+
+#: largest transform one K8 launch takes: its 2^12 slots of 8 words and
+#: 2^11 twiddles fill 192 KB of a block's 227 KB of shared memory
+TRANSFORM_MAX = 1 << 12
+
+#: blocks a transform is split over (a thread-block cluster, its first
+#: stages across blocks through distributed shared memory) by transform
+#: size: the fastest at batch 1 and 3 on the H100 (PERF.md); halved while
+#: the batch's blocks outnumber the card's SMs (`cluster_size`)
+CLUSTER = {2: 1, 4: 1, 8: 1, 16: 1, 32: 1, 64: 1, 128: 1, 256: 1, 512: 2, 1024: 4, 2048: 8, 4096: 8}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def cluster_size(N: int, B: int, device: torch.device) -> int:
+    """Blocks a K8 transform of N points takes at batch B: CLUSTER[N],
+    halved while B of them outnumber the SMs."""
+    C = CLUSTER[N]
+    while C > 1 and B * C > _sm_count(device):
+        C //= 2
+    return C
+
+
+def transform_plain(spec: FieldSpec, x, table, rev, n_inv, inverse: bool):
+    """Plain torch K8 transform: the log2(N) Pease stages (`stage_plain`),
+    the gather x[:, rev] into natural order, and for the inverse the 1/N
+    scale n_inv."""
+    N = x.shape[1]
+    for s in range(N.bit_length() - 1):
+        x = stage_plain(spec, x, table, s)
+    x = x[:, rev]
+    if inverse:
+        x = mont_mul_plain(spec, x, n_inv.reshape((spec.n_limbs,) + (1,) * (x.ndim - 1)))
+    return x
+
+
+def check_transform(spec: FieldSpec, N: int) -> None:
+    """Raise a ValueError for a transform one K8 launch does not take: a
+    field of other than 16 limbs, or N not a power of two in [2,
+    TRANSFORM_MAX]."""
+    if spec.n_limbs != 16:
+        raise ValueError(f"K8 transform: {spec.name} has {spec.n_limbs} limbs; the kernel is built for 16")
+    if N & (N - 1) or not 2 <= N <= TRANSFORM_MAX:
+        raise ValueError(f"K8 transform: N={N} must be a power of two in [2, {TRANSFORM_MAX}]")
+
+
+def transform(spec: FieldSpec, x, table, rev, n_inv, inverse: bool, cluster: int = None):
+    """The N-point transform along axis 1 of x (n_limbs, N, *batch),
+    natural order in and out, with the root table (n_limbs, N/2) of W[j] =
+    w^j, and for the inverse the 1/N scale n_inv: one K8 launch on the card
+    (`cluster` blocks a transform, `cluster_size` by default), the plain
+    version on the CPU. `rev` is the plain version's bit-reversal index."""
+    if device_kind(x, table) == "cpu":
+        return transform_plain(spec, x, table, rev, n_inv, inverse)
+    N = x.shape[1]
+    check_transform(spec, N)
+    x = x.contiguous()
+    _check_cuda(spec, x, table)
+    if table.shape != (spec.n_limbs, N // 2):
+        raise ValueError(f"transform: table {tuple(table.shape)} for N={N}")
+    B = x[0, 0].numel()
+    C = cluster or cluster_size(N, B, x.device)
+    scale = n_inv.reshape(spec.n_limbs).contiguous() if inverse else None
+    words, n0 = word_consts(spec)
+    out = torch.empty_like(x)
+    code = build.lib().ozl_ntt_transform(
+        out.data_ptr(), x.data_ptr(), table.data_ptr(), scale.data_ptr() if inverse else None,
+        N.bit_length() - 1, B, C, spec.n_limbs, words.ctypes.data, n0, build.stream_ptr(x),
+    )
+    build.check(code, "K8 transform")
+    K8.count(N // 2 * B)
     return out

@@ -2,8 +2,8 @@
 
     python3 -m openzl_tpu_torch.tools.kernel_probe [part ...]
 
-Parts (all by default): microbench, k5, k9, k3, scan. Prints, on the card
-it runs on:
+Parts (all by default): microbench, k5, k9, k3, scan, k7, k8. Prints, on
+the card it runs on:
   * `field_microbench.cu` (built here with nvcc): latency and throughput of
     the F1 and F1c field operations and of one G1 mixed add, and K5's
     split rounds at 32, 64 and 128 threads a block; then the instruction
@@ -28,7 +28,21 @@ it runs on:
     bounds of its Hillis-Steele levels (`ec_kernel.SCAN_NARROW`), with the
     device time of each kernel (torch.profiler), against the Hillis-Steele
     scan through K3 that it replaced (the same group elements; compared
-    affine).
+    affine);
+  * K7 (Poseidon2, width 3, BN254 Fr) through the wrapper at 2^12 to 2^18
+    states: time per batch and permutations per second, which stay flat
+    once the card is full when the kernel is bound by its issue;
+    "queued" times here and in part k8 are CUDA events around calls queued
+    behind a sleeping kernel (`_queued_ms`), the card's time without the
+    host's launch cost;
+  * K8's one-launch transform (BN254 Fr) at 2^4 to 2^12 points, batch 1,
+    3 and 16, split over clusters of 1, 2, 4 and 8 blocks (the wrapper's
+    `cluster`), queued, and at batch 1 two builds of
+    `csrc/ntt_kernel.cu` from patched copies of `ntt.cuh`, one without
+    its stages (the loads and stores alone) and one without the stages'
+    products (timing only: wrong results), for where a launch's time
+    goes; the four-step route and the stage-a-launch route at 2^10 and
+    2^12 beside it.
 Builds go to `build/kernel_probe/` beside the kernel library. Exits non-zero
 without a card.
 """
@@ -65,7 +79,10 @@ FOLD_BOUNDS = [(128, 4, 2), (128, 3, 3), (64, 8, 4), (64, 6, 4), (32, 16, 8), (3
 EC_BUILDS = [(2, 1, "F1c"), (3, 2, "F1c"), (4, 2, "F1c"), (2, 1, "F1")]
 #: bounds of the lifted scan's narrow levels swept (`ec_kernel.SCAN_NARROW`)
 SCAN_NARROWS = [0, 4096, 16384, 32768]
-PARTS = ("microbench", "k5", "k9", "k3", "scan")
+PARTS = ("microbench", "k5", "k9", "k3", "scan", "k7", "k8")
+#: K8 builds of ntt_kernel.cu for part k8: (text in ntt.cuh, its replacement)
+K8_BUILDS = {"no stages": ("for (int s = 0; s < L; ++s) {", "for (int s = 0; s < 0; ++s) {"),
+             "no products": ("        y = Fd.mul(y, w);", "        y = Fd.add(y, w);")}
 DIRECT_SRC = """template <class T>
 struct DirectRead {
   static constexpr int PW = 2 * (int)(sizeof(T) / sizeof(uint32_t));
@@ -158,6 +175,18 @@ def _start_builds(parts):
             so = d / "fold.so"
             start(name, so, [nvcc, *build.NVCC_FLAGS, "-DOZL_NO_W12", "-I", str(d), "-I", str(build.CSRC),
                              "-shared", "-o", str(so), str(d / "fold_kernel.cu")])
+    if "k8" in parts:
+        for i, (name, (old, new)) in enumerate(K8_BUILDS.items()):
+            d = OUT / f"ntt_{i}"
+            d.mkdir(exist_ok=True)
+            text = (build.CSRC / "ntt.cuh").read_text()
+            if old not in text:
+                raise RuntimeError(f"ntt.cuh no longer has the text the {name} build replaces")
+            (d / "ntt.cuh").write_text(text.replace(old, new))
+            (d / "ntt_kernel.cu").write_text((build.CSRC / "ntt_kernel.cu").read_text())
+            so = d / "ntt.so"
+            start(f"k8: {name}", so, [nvcc, *build.NVCC_FLAGS, "-I", str(d), "-I", str(build.CSRC), "-shared", "-o",
+                                      str(so), str(d / "ntt_kernel.cu")])
     if "k3" in parts:
         for i, (g1, g2, field) in enumerate(EC_BUILDS):
             so = OUT / f"ec_{i}.so"
@@ -474,6 +503,99 @@ def scan_sweep(cases) -> None:
             ec_kernel.SCAN_NARROW = shipped
 
 
+def _queued_ms(fn, reps: int) -> float:
+    """Device ms per call of fn: reps calls queued behind a kernel that
+    sleeps about 10 ms, so that the host's cost of each launch overlaps
+    the card's work, timed by CUDA events around them (each call's time
+    and the card's gap between two launches). torch.profiler's device
+    times, which lose records in such a run, are not needed."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k7_sweep(dev) -> None:
+    """K7 at width 3 over BN254 Fr through the wrapper, 2^12 to 2^18 states."""
+    from ..crypto.poseidon2 import Poseidon2
+    from ..ops import poseidon2_kernel
+
+    perm = Poseidon2.create(BN254_FR, 2, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for log_b in range(12, 19):
+        x = torch.randint(0, 1 << 16, (16, 3, 1 << log_b), generator=gen, device=dev, dtype=torch.int32)
+        x[-1] = 0  # below p
+        ms = _timed(lambda: poseidon2_kernel.permute(perm, x), 10)
+        qms = _queued_ms(lambda: poseidon2_kernel.permute(perm, x), 10)
+        log(f"[k7] width 3, 2^{log_b} states: {ms:.4f} ms ({qms:.4f} queued), {(1 << log_b) / ms / 1e3:.2f} M perms/s")
+
+
+def k8_sweep(procs, dev, rng) -> None:
+    """K8's transform by size, batch and cluster, the patched builds at
+    batch 1, and the two other routes."""
+    from ..ops import ntt, ntt_kernel
+
+    main = build.lib()
+    variants = {}
+    for name, (so, proc) in list(procs.items()):
+        if name.startswith("k8: "):
+            log(f"[k8] {name[4:]} build (registers, spill bytes): {_ptxas(_finish(proc, name))}")
+            lib = ctypes.CDLL(str(so))
+            fn = lib.ozl_ntt_transform
+            fn.argtypes, fn.restype = build._SIGNATURES["ozl_ntt_transform"], ctypes.c_int
+            variants[name[4:]] = fn
+    spec = BN254_FR
+    for log_n in range(4, 13):
+        N = 1 << log_n
+        rev, table, n_inv = ntt._plan(spec, log_n, False, dev)
+        for batch in (1, 3, 16):
+            vals = np.array([rng.randrange(spec.modulus) for _ in range(N * batch)], dtype=object)
+            x = limb.tensor(limb.pack_mont(spec, vals.reshape(N, batch)), dev)
+            want = ntt_kernel.transform_plain(spec, x, table, rev, n_inv, False)
+            row = []
+            for C in (1, 2, 4, 8):
+                if N // C < 2:
+                    continue
+                f = lambda C=C: ntt_kernel.transform(spec, x, table, rev, n_inv, False, C)
+                if not torch.equal(f(), want):
+                    raise RuntimeError(f"the transform of 2^{log_n} over {C} blocks differs from its plain version")
+                times = [_queued_ms(f, 20)]
+                if batch == 1:
+                    try:
+                        for fn in variants.values():
+                            build.lib = lambda fn=fn: _With(main, ozl_ntt_transform=fn)
+                            times.append(_queued_ms(f, 20))
+                    finally:
+                        build.lib = lambda: main
+                row.append(f"{C} blocks " + " / ".join(f"{t * 1e3:.1f}" for t in times))
+            what = " (whole / " + " / ".join(variants) + ")" if batch == 1 else ""
+            default = ntt_kernel.cluster_size(N, batch, dev)
+            log(f"[k8] 2^{log_n} batch {batch}, us a transform queued{what}: {'; '.join(row)}; "
+                f"the wrapper takes {default}")
+    for log_n in (10, 12):
+        x = limb.tensor(limb.pack_mont(spec, [rng.randrange(spec.modulus) for _ in range(1 << log_n)]), dev)
+        _, table, _ = ntt._plan(spec, log_n, False, dev)
+        rev = torch.as_tensor(ntt._bitrev(1 << log_n), device=dev)
+
+        def stages():
+            y = x
+            for s in range(log_n):
+                y = ntt_kernel.stage(spec, y, table, s)
+            return y[:, rev]
+
+        for label, f in (("one launch", lambda: ntt._ntt_core(spec, x, False)),
+                         ("four-step", lambda: ntt.fourstep_transform(spec, x, False)),
+                         ("a stage a launch", stages)):
+            log(f"[k8] 2^{log_n} batch 1, {label}: {_timed(f, 50):.4f} ms (CUDA events), {_queued_ms(f, 20):.4f} ms "
+                f"queued")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe needs a GPU")
@@ -499,6 +621,10 @@ def main() -> None:
         k3_builds(procs, dev)
     if "scan" in parts:
         scan_sweep(cases)
+    if "k7" in parts:
+        k7_sweep(dev)
+    if "k8" in parts:
+        k8_sweep(procs, dev, rng)
 
 
 if __name__ == "__main__":

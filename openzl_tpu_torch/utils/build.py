@@ -166,6 +166,8 @@ _SIGNATURES = {
     # (u, t, in_ls, tw, tw_ls, mask, lo, hi, out_ls, out_ks, H, B, n_limbs,
     #  p, n0, stream)
     "ozl_butterfly": [_VP, _VP, _I64, _VP, _I64, _I64, _VP, _VP, _I64, _I64, _I64, _I64, _I, _VP, _U32, _VP],
+    # (out, x, table, n_inv|0, log_n, B, cluster, n_limbs, p, n0, stream)
+    "ozl_ntt_transform": [_VP, _VP, _VP, _VP, _I, _I64, _I, _I, _VP, _U32, _VP],
     # (mixed, ext, x1, y1, z1, x2, y2, z2, x3, y3, z3, N, n_limbs, p, n0,
     #  beta, has_a, a_words, stream)
     "ozl_ec_add": [_I, _I] + [_VP] * 9 + [_I64, _I, _VP, _U32, _I, _I, _VP, _VP],

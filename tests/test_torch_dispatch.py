@@ -13,7 +13,11 @@ plain permutation on the buffers the wrapper hands it; another stand-in
 instantiation (2 limbs; a p past `F1c`'s bound) before any launch, and
 launch BN254 (16 limbs) and BLS12-381 (24 limbs). Through it a BN254
 Merkle build, the slice's entry point, is held against the JAX package's
-Python-int Poseidon oracle (`CurrentPath`). Inputs come from seeded
+Python-int Poseidon oracle (`CurrentPath`). A transform below the
+four-step threshold reaches the library as one K8 transform launch and
+nothing else (`_TransformLib`, which computes the plain transform on the
+buffers it is handed), with the wrapper's cluster size; a 24-limb field
+and N = 2^13 are refused before it. Inputs come from seeded
 `random.Random` / numpy; every comparison is exact (tolerance 0)."""
 
 import collections
@@ -319,3 +323,66 @@ def test_poseidon_wrappers_refuse_unbuilt_widths_before_any_launch(width_card):
     assert fake.calls == []
     poseidon_kernel.permute(at(3), state(3), "split")
     assert fake.calls == [("ozl_poseidon_permute", 3, 1)]
+
+
+class _TransformLib:
+    """Stands in for the kernel library with K8's transform entry alone:
+    records (log_n, B, cluster, inverse) and writes the plain transform of
+    the buffers into the output. Any other entry point is missing, so a
+    stage or K1 launch fails the caller."""
+
+    def __init__(self, spec):
+        self.spec, self.calls = spec, []
+
+    def ozl_ntt_transform(self, out, x, table, n_inv, log_n, B, cluster, n_limbs, p, n0, stream):
+        from openzl_tpu_torch.ops import ntt, ntt_kernel
+
+        N = 1 << log_n
+        self.calls.append((log_n, B, cluster, n_inv is not None))
+        xt = torch.from_numpy(_view(x, (n_limbs, N, B)).copy())
+        tt = torch.from_numpy(_view(table, (n_limbs, N // 2)).copy())
+        scale = torch.from_numpy(_view(n_inv, (n_limbs,)).copy()) if n_inv is not None else None
+        rev = torch.as_tensor(ntt._bitrev(N))
+        _view(out, (n_limbs, N, B))[...] = ntt_kernel.transform_plain(self.spec, xt, tt, rev, scale,
+                                                                       n_inv is not None).numpy()
+        return 0
+
+
+def test_small_transform_is_one_transform_launch(monkeypatch):
+    """`ntt._ntt_core` on a (stand-in) card: one `ozl_ntt_transform` call a
+    transform, forward and inverse, batch 1 and 3, with the wrapper's
+    cluster size, its result the plain route's; a 24-limb field and N =
+    2^13 raise a ValueError before any call."""
+    from openzl_tpu_torch.curves.spec import BLS12_381_G1
+    from openzl_tpu_torch.ops import ntt, ntt_kernel
+
+    fake = _TransformLib(BN254_FR)
+    rng = random.Random(81)
+    cases = [(6, ()), (10, (3,)), (1, ())]
+    inputs = {c: limb.tensor(limb.pack_mont(BN254_FR, np.array(
+        [rng.randrange(BN254_FR.modulus) for _ in range((1 << c[0]) * int(np.prod(c[1])))], dtype=object
+    ).reshape((1 << c[0],) + c[1]))) for c in cases}
+    want = {(c, inv): ntt._ntt_core(BN254_FR, inputs[c], inv) for c in cases for inv in (False, True)}
+    ntt._plan(BN254_FR, 13, False, torch.device("cpu"))
+    monkeypatch.setattr(ntt_kernel, "device_kind", lambda *t: "cuda")
+    monkeypatch.setattr(build, "lib", lambda: fake)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: None)
+    monkeypatch.setattr(ntt_kernel, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(ntt_kernel.K8, "launches", 0)
+    monkeypatch.setattr(ntt_kernel.K8, "by_width", {})
+    for (log_n, batch), x in inputs.items():
+        for inverse in (False, True):
+            got = ntt._ntt_core(BN254_FR, x, inverse)
+            assert torch.equal(got, want[(log_n, batch), inverse]), (log_n, batch, inverse)
+    blocks = {6: ntt_kernel.CLUSTER[64], 10: ntt_kernel.CLUSTER[1024], 1: 1}
+    assert fake.calls == [(log_n, int(np.prod(batch)), blocks[log_n], inv)
+                          for log_n, batch in cases for inv in (False, True)]
+    assert ntt_kernel.K8.launches == len(fake.calls)
+    rev, table, n_inv = ntt._plan(BN254_FR, 13, False, torch.device("cpu"))
+    with pytest.raises(ValueError, match="N=8192"):
+        ntt_kernel.transform(BN254_FR, torch.zeros((16, 1 << 13), dtype=torch.int32), table, rev, n_inv, False)
+    wide = BLS12_381_G1.base
+    with pytest.raises(ValueError, match=f"{wide.name} has 24 limbs"):
+        ntt_kernel.transform(wide, torch.zeros((24, 8), dtype=torch.int32), torch.zeros((24, 4), dtype=torch.int32),
+                             None, None, False)
+    assert len(fake.calls) == ntt_kernel.K8.launches == 6

@@ -151,6 +151,55 @@ def test_k8_kernel_and_stage_route_match(cuda):
         assert torch.equal(fn(spec, x).cpu(), fn(spec, x.cpu())), fn.__name__
 
 
+@pytest.mark.parametrize("batch", [1, 3, 4])
+def test_k8_transform_matches_plain_at_every_size(cuda, batch):
+    """K8's one-launch transform against its plain version (Pease stages,
+    gather, scale) at every N from 2 to 2^12, forward and inverse, with
+    the wrapper's cluster size and with one block a transform."""
+    spec = BN254_FR
+    for log_n in range(1, 13):
+        N = 1 << log_n
+        x = limb.to_mont(spec, _field(spec, max(N * batch, 4), 60 + log_n)[:, :N * batch])
+        x = x.reshape(spec.n_limbs, N, batch).to(cuda)
+        x = x[:, :, 0].contiguous() if batch == 1 else x.contiguous()
+        for inverse in (False, True):
+            rev, table, n_inv = ntt._plan(spec, log_n, inverse, cuda)
+            want = ntt_kernel.transform_plain(spec, x, table, rev, n_inv, inverse)
+            for cluster in (None, 1):
+                got = ntt_kernel.transform(spec, x, table, rev, n_inv, inverse, cluster)
+                assert torch.equal(got, want), (N, inverse, cluster)
+
+
+def test_small_transform_is_one_k8_launch(cuda):
+    """A transform below the four-step threshold through `ntt._ntt_core`
+    on a CUDA tensor is one K8 launch and no K1 launch (no `stage`, no
+    scale), forward and inverse, and equals the CPU route."""
+    spec = BN254_FR
+    x = limb.to_mont(spec, _field(spec, 1 << 12, 71))
+    xc = x.to(cuda)
+    for inverse in (False, True):
+        ntt._plan(spec, 12, inverse, xc.device)  # the tables, built once by K1 products
+        before = (ntt_kernel.K8.launches, ntt_kernel.K1.launches)
+        got = ntt._ntt_core(spec, xc, inverse)
+        assert (ntt_kernel.K8.launches - before[0], ntt_kernel.K1.launches - before[1]) == (1, 0)
+        assert torch.equal(got.cpu(), ntt._ntt_core(spec, x, inverse)), inverse
+
+
+def test_k8_transform_refuses_before_any_launch(cuda):
+    """A 16-limb field's N = 2^13 and a 24-limb field's transform raise a
+    ValueError before any launch."""
+    spec, wide = BN254_FR, BLS12_381_G1.base
+    launches = ntt_kernel.K8.launches
+    x = torch.zeros((16, 1 << 13), dtype=torch.int32, device=cuda)
+    table = torch.zeros((16, 1 << 12), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="N=8192"):
+        ntt_kernel.transform(spec, x, table, None, None, False)
+    xw = torch.zeros((24, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=f"{wide.name} has 24 limbs"):
+        ntt_kernel.transform(wide, xw, torch.zeros((24, 4), dtype=torch.int32, device=cuda), None, None, False)
+    assert ntt_kernel.K8.launches == launches
+
+
 @pytest.mark.parametrize("n_pts", [200, 2], ids=["r32", "r1"])
 @pytest.mark.parametrize("curve", EC_CURVES, ids=lambda c: c.name)
 def test_k9_kernel_matches_plain(cuda, curve, n_pts):
@@ -281,6 +330,18 @@ def test_k6_kernel_matches_plain_on_the_worst_case_state(cuda):
 @pytest.mark.parametrize("width", [w for w in poseidon2_kernel.KERNEL_WIDTHS if w != 3])
 def test_k7_kernel_matches_plain_at_other_widths(cuda, spec, width):
     x = _states(spec, 129, 43 + width, cuda, width)
+    perm2 = Poseidon2.create(spec, width - 1, device=cuda)
+    assert torch.equal(poseidon2_kernel.permute(perm2, x), poseidon2_kernel.poseidon2_permute_plain(perm2, x))
+
+
+@pytest.mark.parametrize("spec", [BN254_FR, BLS12_381_FR], ids=lambda s: s.name)
+@pytest.mark.parametrize("width", poseidon2_kernel.KERNEL_WIDTHS)
+def test_k7_kernel_matches_plain_on_the_worst_case_state(cuda, spec, width):
+    """K7 at every built width over both fields on 129 states, the first 64
+    with every element p - 1 (the largest input of each linear-layer sum
+    the kernel leaves unreduced), the rest random."""
+    x = _states(spec, 129, 61 + width, cuda, width)
+    x[:, :, :64] = limb.tensor(limb.pack_mont(spec, [spec.modulus - 1]), cuda).reshape(-1, 1, 1)
     perm2 = Poseidon2.create(spec, width - 1, device=cuda)
     assert torch.equal(poseidon2_kernel.permute(perm2, x), poseidon2_kernel.poseidon2_permute_plain(perm2, x))
 

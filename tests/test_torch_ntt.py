@@ -9,8 +9,14 @@ Fr at 2^3 to 2^10 and on a batch axis, through both routes (per-stage
 below 2^13, and the four-step route, reached by lowering the threshold or
 through `fourstep_transform`). K8 stages and the per-stage transforms are also
 held against sums over Python ints (no JAX compile) on BN254 Fr,
-BLS12-381 Fr and BabyBear. Inputs come from numpy.random.default_rng(seed);
-every comparison is exact equality (tolerance 0)."""
+BLS12-381 Fr and BabyBear. K8's one-launch transform's plain version
+(`transform_plain`) is held against the JAX package's `_ntt_core` at 2^1
+to 2^10, forward and inverse, on a batch of 3 and on its first column
+alone (one XLA compile per size and direction, shared by both batches).
+Inputs come from numpy.random.default_rng(seed); every comparison is exact
+equality (tolerance 0)."""
+
+import functools
 
 import os
 
@@ -278,3 +284,27 @@ def test_stage_route_matches_naive_dft(name, log_n):
     assert [int(v) for v in _ints(spec, ntt.coset_intt(spec, tx))] == [
         v * pow(g_inv, j, p) % p for j, v in enumerate(inv)
     ]
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_core(log_n, inverse):
+    """(input, the JAX package's `_ntt_core` of it) for a seeded (N, 3)
+    BN254 Fr input: one XLA compile per size and direction."""
+    x = _rand_mont(BN254_FR, (1 << log_n, 3), 200 + log_n)
+    return x, np.asarray(ref_ntt._ntt_core(BN254_FR, jnp.asarray(x), inverse))
+
+
+@pytest.mark.parametrize("log_n", range(1, 11))
+def test_transform_plain_matches_reference_core(log_n):
+    """K8's plain transform (the Pease stages, the bit-reversal gather and
+    the inverse's 1/N scale, with the port's `_plan` tables) against the
+    JAX package's `_ntt_core`, forward and inverse, at batch 3 and batch 1
+    (the first column, without a batch axis)."""
+    spec = BN254_FR
+    for inverse in (False, True):
+        x, want = _ref_core(log_n, inverse)
+        rev, table, n_inv = ntt._plan(spec, log_n, inverse, torch.device("cpu"))
+        got = ntt_kernel.transform_plain(spec, limb.tensor(x), table, rev, n_inv, inverse)
+        assert np.array_equal(got.numpy().astype(np.uint32), want), inverse
+        got1 = ntt_kernel.transform(spec, limb.tensor(np.ascontiguousarray(x[:, :, 0])), table, rev, n_inv, inverse)
+        assert np.array_equal(got1.numpy().astype(np.uint32), want[:, :, 0]), inverse

@@ -24,6 +24,10 @@ round numbers, the same Montgomery limbs, the same field elements).
   `permute_ints` then takes too: the search takes 10-35 s, one check of a
   diagonal 15-60 s) and the plain K7 and `hash` against its
   `permute_ints`.
+- The plain K7 on the worst-case state (every element p - 1, the largest
+  input of every linear-layer sum the kernel leaves unreduced) at every
+  built width over both fields, against the JAX package's `permute_ints`
+  on the port's round keys and diagonal.
 - The port's Rabin irreducibility test against the JAX package's.
 - One XLA compile per family: the JAX package's jnp `Poseidon.permute` at
   width 5 and `Poseidon2.permute` at width 2 against the port's `permute`
@@ -179,6 +183,26 @@ def test_poseidon2_width_matches_reference(field, width, monkeypatch):
     digest = port.hash(state[:, 1:])
     assert [int(v) for v in _ints(spec, digest)] == [oracle([tag, *c[1:]])[0] for c in cols]
     assert width in poseidon2_kernel.KERNEL_WIDTHS
+
+
+@pytest.mark.parametrize("width", poseidon2_kernel.KERNEL_WIDTHS)
+@pytest.mark.parametrize("field", FIELDS)
+def test_poseidon2_plain_takes_the_worst_case_state(field, width, monkeypatch):
+    """Every element p - 1, and a zero state beside it, through the plain
+    K7 against the JAX package's Python-int oracle with the port's round
+    keys and internal diagonal (the oracle's diagonal search replaced by
+    the port's result)."""
+    spec, ref_spec = FIELDS[field]
+    port = Poseidon2.create(spec, width - 1, device="cpu")
+    ext = [[int(v) for v in limb.unpack_mont(spec, np.ascontiguousarray(port.ext_keys[r]))]
+           for r in range(port.full_rounds)]
+    ints = [int(v) for v in limb.unpack_mont(spec, np.ascontiguousarray(port.int_keys.T))]
+    monkeypatch.setattr(ref_p2, "internal_matrix", lambda p, w: port.diag)
+    cols = [[spec.modulus - 1] * width, [0] * width]
+    state = limb.tensor(limb.pack_mont(spec, np.array(cols, dtype=object).T), "cpu")
+    got = [[int(v) for v in col] for col in _ints(spec, poseidon2_kernel.poseidon2_permute_plain(port, state)).T]
+    assert got == [ref_p2.permute_ints(ref_spec, width, port.full_rounds, port.partial_rounds, ext, ints, c)
+                   for c in cols]
 
 
 @pytest.mark.parametrize("field", FIELDS)
