@@ -1309,8 +1309,10 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
     # K8: the one-launch transform (the per-stage route's launch) at 2^12
     # and 2^10, forward and inverse, batch 1 and 4; 2^12 forward at batch 1
     # first, the row's headline. Bound: the larger of its Montgomery
-    # products (N/2 log2 N a column, N more for the inverse's scale) over
-    # the issue rate and the column read and written once
+    # products over the issue rate and the column read and written once.
+    # The products are those the function needs: N/2 log2 N butterflies a
+    # column less the N - 1 whose twiddle is w^0 = 1 (group 0 of every
+    # stage), and N more for the inverse's scale
     for log_n in (12, 10):
         N = 1 << log_n
         for inverse in (False, True):
@@ -1327,7 +1329,7 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
                 ms = _time(kern, reps * 5, dev)
                 pms = _time(lambda: ntt_kernel.transform_plain(spec, x, table, rev, n_inv, inverse), 3, dev)
                 blocks = ntt_kernel.cluster_size(N, batch, dev) if dev.type == "cuda" else ntt_kernel.CLUSTER[N]
-                products = batch * (N // 2 * log_n + (N if inverse else 0))
+                products = batch * (N // 2 * log_n - (N - 1) + (N if inverse else 0))
                 _check("butterfly", results, [got], [exp], ms, pms,
                        f"{spec.name} transform 2^{log_n} ({'inverse' if inverse else 'forward'}, batch {batch}, "
                        f"one launch, {blocks} blocks a transform)",

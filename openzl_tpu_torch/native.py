@@ -116,9 +116,11 @@ def _as_bytes_le(spec: FieldSpec, values: np.ndarray) -> tuple[np.ndarray, int]:
 
 def to_mont_limbs(spec: FieldSpec, values) -> Optional[np.ndarray]:
     """Python ints -> Montgomery planar limbs (n_limbs, *batch); None if the
-    native library is unavailable."""
+    native library is unavailable, or if the field's limb count is not a
+    multiple of 4 (BabyBear's 2): the converter's radix 2^(64 n64) is then
+    not the limbs' 2^(16 n_limbs)."""
     lib = _lib()
-    if lib is None:
+    if lib is None or spec.n_limbs % 4:
         return None
     arr = np.asarray(values, dtype=object)
     buf, stride = _as_bytes_le(spec, arr)

@@ -11,11 +11,13 @@ Two routes, split at the reference's `_FOURSTEP_MIN` = 2^13:
   * below it, the per-stage route `_ntt_core`: ONE launch of kernel K8
     runs every radix-2 stage of the transform on the column held in shared
     memory (split over a thread-block cluster at batch 1), with the
-    bit-reversal gather and the inverse's 1/N scale in its store; its
-    plain version, and the CPU route, is log2(N) constant-geometry (Pease)
-    decimation-in-frequency stages (pairs x[k], x[k + N/2], writes lo to
-    slot 2k and hi to slot 2k + 1, twiddle w^(k & ~(2^s - 1)) read from the
-    root table by index), then one bit-reversal gather;
+    bit-reversal gather and the inverse's 1/N scale in its store, over the
+    16-limb fields it is built for; its plain version, the CPU route, and
+    on the card the route of other fields, is log2(N) constant-geometry
+    (Pease) decimation-in-frequency stages, each a K8 `stage` launch on
+    the card (pairs x[k], x[k + N/2], writes lo to slot 2k and hi to slot
+    2k + 1, twiddle w^(k & ~(2^s - 1)) read from the root table by index),
+    then one bit-reversal gather;
   * from it on, `fourstep_transform`: a four-step (Bailey) decomposition
     N = n1 x n2 applied recursively. Each level runs an n1-point transform
     over the columns in ONE launch of kernel K2 (all DIF stages in shared
@@ -24,7 +26,7 @@ Two routes, split at the reference's `_FOURSTEP_MIN` = 2^13:
     rows. Level sizes are balanced powers of two of at most K2's 64 points
     (2^17 = 64 x 64 x 32).
 
-The four-step route's 1/N scale and the coset scales are kernel K1
+The 1/N scale outside the one launch and the coset scales are kernel K1
 products.
 """
 
@@ -174,12 +176,22 @@ def _ntt_core(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Per-stage route: the whole transform in one K8 launch on the card
     (every stage in shared memory, the bit reversal and the 1/N scale in
     its store); on the CPU its plain version, log2(N) Pease DIF stages, one
-    gather into natural order and the 1/N scale for the inverse."""
+    gather into natural order and the 1/N scale for the inverse. A field
+    the one launch is not built for (BabyBear, BLS12-377 Fq) takes those
+    stages on the card too: one K8 `stage` launch each, the gather, and
+    for the inverse a K1 scale."""
     N = x.shape[1]
     if N == 1:
         return x
     rev, table, n_inv = _plan(spec, N.bit_length() - 1, inverse, x.device)
-    return ntt_kernel.transform(spec, x, table, rev, n_inv, inverse)
+    if spec.n_limbs == ntt_kernel.TRANSFORM_LIMBS:
+        return ntt_kernel.transform(spec, x, table, rev, n_inv, inverse)
+    for s in range(N.bit_length() - 1):
+        x = ntt_kernel.stage(spec, x, table, s)
+    x = x[:, rev]
+    if inverse:
+        x = ntt_kernel.mont_scale(spec, x.contiguous(), n_inv)
+    return x
 
 
 def _transform(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:

@@ -368,6 +368,10 @@ def stage(spec: FieldSpec, x, table, s: int):
 #: 2^11 twiddles fill 192 KB of a block's 227 KB of shared memory
 TRANSFORM_MAX = 1 << 12
 
+#: the limb count K8's transform is built for (BN254 Fr, BLS12-381 Fr);
+#: `ntt._ntt_core` runs other fields a `stage` launch a stage
+TRANSFORM_LIMBS = 16
+
 #: blocks a transform is split over (a thread-block cluster, its first
 #: stages across blocks through distributed shared memory) by transform
 #: size: the fastest at batch 1 and 3 on the H100 (PERF.md); halved while
@@ -404,20 +408,21 @@ def transform_plain(spec: FieldSpec, x, table, rev, n_inv, inverse: bool):
 
 def check_transform(spec: FieldSpec, N: int) -> None:
     """Raise a ValueError for a transform one K8 launch does not take: a
-    field of other than 16 limbs, or N not a power of two in [2,
-    TRANSFORM_MAX]."""
-    if spec.n_limbs != 16:
-        raise ValueError(f"K8 transform: {spec.name} has {spec.n_limbs} limbs; the kernel is built for 16")
+    field of other than TRANSFORM_LIMBS limbs, or N not a power of two in
+    [2, TRANSFORM_MAX]."""
+    if spec.n_limbs != TRANSFORM_LIMBS:
+        raise ValueError(f"K8 transform: {spec.name} has {spec.n_limbs} limbs; the kernel is built for "
+                         f"{TRANSFORM_LIMBS}")
     if N & (N - 1) or not 2 <= N <= TRANSFORM_MAX:
         raise ValueError(f"K8 transform: N={N} must be a power of two in [2, {TRANSFORM_MAX}]")
 
 
-def transform(spec: FieldSpec, x, table, rev, n_inv, inverse: bool, cluster: int = None):
+def transform(spec: FieldSpec, x, table, rev, n_inv, inverse: bool):
     """The N-point transform along axis 1 of x (n_limbs, N, *batch),
     natural order in and out, with the root table (n_limbs, N/2) of W[j] =
     w^j, and for the inverse the 1/N scale n_inv: one K8 launch on the card
-    (`cluster` blocks a transform, `cluster_size` by default), the plain
-    version on the CPU. `rev` is the plain version's bit-reversal index."""
+    (`cluster_size` blocks a transform), the plain version on the CPU.
+    `rev` is the plain version's bit-reversal index."""
     if device_kind(x, table) == "cpu":
         return transform_plain(spec, x, table, rev, n_inv, inverse)
     N = x.shape[1]
@@ -427,7 +432,7 @@ def transform(spec: FieldSpec, x, table, rev, n_inv, inverse: bool, cluster: int
     if table.shape != (spec.n_limbs, N // 2):
         raise ValueError(f"transform: table {tuple(table.shape)} for N={N}")
     B = x[0, 0].numel()
-    C = cluster or cluster_size(N, B, x.device)
+    C = cluster_size(N, B, x.device)
     scale = n_inv.reshape(spec.n_limbs).contiguous() if inverse else None
     words, n0 = word_consts(spec)
     out = torch.empty_like(x)

@@ -36,13 +36,9 @@ the card it runs on:
     behind a sleeping kernel (`_queued_ms`), the card's time without the
     host's launch cost;
   * K8's one-launch transform (BN254 Fr) at 2^4 to 2^12 points, batch 1,
-    3 and 16, split over clusters of 1, 2, 4 and 8 blocks (the wrapper's
-    `cluster`), queued, and at batch 1 two builds of
-    `csrc/ntt_kernel.cu` from patched copies of `ntt.cuh`, one without
-    its stages (the loads and stores alone) and one without the stages'
-    products (timing only: wrong results), for where a launch's time
-    goes; the four-step route and the stage-a-launch route at 2^10 and
-    2^12 beside it.
+    3 and 16, split over clusters of 1, 2, 4 and 8 blocks (each set in
+    turn as `ntt_kernel.CLUSTER`'s entry), queued; the four-step route and
+    the stage-a-launch route at 2^10 and 2^12 beside it.
 Builds go to `build/kernel_probe/` beside the kernel library. Exits non-zero
 without a card.
 """
@@ -80,9 +76,6 @@ EC_BUILDS = [(2, 1, "F1c"), (3, 2, "F1c"), (4, 2, "F1c"), (2, 1, "F1")]
 #: bounds of the lifted scan's narrow levels swept (`ec_kernel.SCAN_NARROW`)
 SCAN_NARROWS = [0, 4096, 16384, 32768]
 PARTS = ("microbench", "k5", "k9", "k3", "scan", "k7", "k8")
-#: K8 builds of ntt_kernel.cu for part k8: (text in ntt.cuh, its replacement)
-K8_BUILDS = {"no stages": ("for (int s = 0; s < L; ++s) {", "for (int s = 0; s < 0; ++s) {"),
-             "no products": ("        y = Fd.mul(y, w);", "        y = Fd.add(y, w);")}
 DIRECT_SRC = """template <class T>
 struct DirectRead {
   static constexpr int PW = 2 * (int)(sizeof(T) / sizeof(uint32_t));
@@ -175,18 +168,6 @@ def _start_builds(parts):
             so = d / "fold.so"
             start(name, so, [nvcc, *build.NVCC_FLAGS, "-DOZL_NO_W12", "-I", str(d), "-I", str(build.CSRC),
                              "-shared", "-o", str(so), str(d / "fold_kernel.cu")])
-    if "k8" in parts:
-        for i, (name, (old, new)) in enumerate(K8_BUILDS.items()):
-            d = OUT / f"ntt_{i}"
-            d.mkdir(exist_ok=True)
-            text = (build.CSRC / "ntt.cuh").read_text()
-            if old not in text:
-                raise RuntimeError(f"ntt.cuh no longer has the text the {name} build replaces")
-            (d / "ntt.cuh").write_text(text.replace(old, new))
-            (d / "ntt_kernel.cu").write_text((build.CSRC / "ntt_kernel.cu").read_text())
-            so = d / "ntt.so"
-            start(f"k8: {name}", so, [nvcc, *build.NVCC_FLAGS, "-I", str(d), "-I", str(build.CSRC), "-shared", "-o",
-                                      str(so), str(d / "ntt_kernel.cu")])
     if "k3" in parts:
         for i, (g1, g2, field) in enumerate(EC_BUILDS):
             so = OUT / f"ec_{i}.so"
@@ -536,20 +517,11 @@ def k7_sweep(dev) -> None:
         log(f"[k7] width 3, 2^{log_b} states: {ms:.4f} ms ({qms:.4f} queued), {(1 << log_b) / ms / 1e3:.2f} M perms/s")
 
 
-def k8_sweep(procs, dev, rng) -> None:
-    """K8's transform by size, batch and cluster, the patched builds at
-    batch 1, and the two other routes."""
+def k8_sweep(dev, rng) -> None:
+    """K8's transform by size, batch and cluster, and the two other
+    routes."""
     from ..ops import ntt, ntt_kernel
 
-    main = build.lib()
-    variants = {}
-    for name, (so, proc) in list(procs.items()):
-        if name.startswith("k8: "):
-            log(f"[k8] {name[4:]} build (registers, spill bytes): {_ptxas(_finish(proc, name))}")
-            lib = ctypes.CDLL(str(so))
-            fn = lib.ozl_ntt_transform
-            fn.argtypes, fn.restype = build._SIGNATURES["ozl_ntt_transform"], ctypes.c_int
-            variants[name[4:]] = fn
     spec = BN254_FR
     for log_n in range(4, 13):
         N = 1 << log_n
@@ -558,26 +530,22 @@ def k8_sweep(procs, dev, rng) -> None:
             vals = np.array([rng.randrange(spec.modulus) for _ in range(N * batch)], dtype=object)
             x = limb.tensor(limb.pack_mont(spec, vals.reshape(N, batch)), dev)
             want = ntt_kernel.transform_plain(spec, x, table, rev, n_inv, False)
-            row = []
-            for C in (1, 2, 4, 8):
-                if N // C < 2:
-                    continue
-                f = lambda C=C: ntt_kernel.transform(spec, x, table, rev, n_inv, False, C)
-                if not torch.equal(f(), want):
-                    raise RuntimeError(f"the transform of 2^{log_n} over {C} blocks differs from its plain version")
-                times = [_queued_ms(f, 20)]
-                if batch == 1:
-                    try:
-                        for fn in variants.values():
-                            build.lib = lambda fn=fn: _With(main, ozl_ntt_transform=fn)
-                            times.append(_queued_ms(f, 20))
-                    finally:
-                        build.lib = lambda: main
-                row.append(f"{C} blocks " + " / ".join(f"{t * 1e3:.1f}" for t in times))
-            what = " (whole / " + " / ".join(variants) + ")" if batch == 1 else ""
             default = ntt_kernel.cluster_size(N, batch, dev)
-            log(f"[k8] 2^{log_n} batch {batch}, us a transform queued{what}: {'; '.join(row)}; "
-                f"the wrapper takes {default}")
+            f = lambda: ntt_kernel.transform(spec, x, table, rev, n_inv, False)
+            row = []
+            shipped = ntt_kernel.CLUSTER[N]
+            try:
+                for C in (1, 2, 4, 8):
+                    if N // C < 2:
+                        continue
+                    ntt_kernel.CLUSTER[N] = C
+                    if not torch.equal(f(), want):
+                        raise RuntimeError(f"the transform of 2^{log_n} over {C} blocks differs from its plain "
+                                           f"version")
+                    row.append(f"{ntt_kernel.cluster_size(N, batch, dev)} blocks {_queued_ms(f, 20) * 1e3:.1f}")
+            finally:
+                ntt_kernel.CLUSTER[N] = shipped
+            log(f"[k8] 2^{log_n} batch {batch}, us a transform queued: {'; '.join(row)}; the wrapper takes {default}")
     for log_n in (10, 12):
         x = limb.tensor(limb.pack_mont(spec, [rng.randrange(spec.modulus) for _ in range(1 << log_n)]), dev)
         _, table, _ = ntt._plan(spec, log_n, False, dev)
@@ -624,7 +592,7 @@ def main() -> None:
     if "k7" in parts:
         k7_sweep(dev)
     if "k8" in parts:
-        k8_sweep(procs, dev, rng)
+        k8_sweep(dev, rng)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,8 @@ Python-int Poseidon oracle (`CurrentPath`). A transform below the
 four-step threshold reaches the library as one K8 transform launch and
 nothing else (`_TransformLib`, which computes the plain transform on the
 buffers it is handed), with the wrapper's cluster size; a 24-limb field
-and N = 2^13 are refused before it. Inputs come from seeded
+and N = 2^13 are refused before it; fields of other limb counts run a
+K8 stage launch a stage instead. Inputs come from seeded
 `random.Random` / numpy; every comparison is exact (tolerance 0)."""
 
 import collections
@@ -386,3 +387,68 @@ def test_small_transform_is_one_transform_launch(monkeypatch):
         ntt_kernel.transform(wide, torch.zeros((24, 8), dtype=torch.int32), torch.zeros((24, 4), dtype=torch.int32),
                              None, None, False)
     assert len(fake.calls) == ntt_kernel.K8.launches == 6
+
+
+@pytest.mark.parametrize("log_n", [1, 6])
+def test_small_transform_routes_by_limb_count(log_n, monkeypatch):
+    """`ntt._ntt_core` hands a 16-limb field's transform to K8's one launch
+    (`transform`) and runs other fields (BabyBear, 2 limbs; BLS12-377 Fq,
+    24) a K8 `stage` a stage, then the gather and, for the inverse, one K1
+    scale; every result equals the plain transform."""
+    from openzl_tpu_torch.fields.spec import FieldSpec
+    from openzl_tpu_torch.ops import ntt, ntt_kernel
+
+    fields = {BN254_FR: 16, FieldSpec("babybear", 2013265921): 2, FieldSpec(
+        "bls12_377_fq",
+        0x01AE3A4617C510EAC63B05C06CA1493B1A22D9F300F5138F1EF3622FBA094800170B5D44300000008508C00000000001,
+    ): 24}
+    calls = collections.Counter()
+
+    def recorded(name):
+        fn = getattr(ntt_kernel, name)
+
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    for name in ("transform", "stage", "mont_scale"):
+        monkeypatch.setattr(ntt_kernel, name, recorded(name))
+    rng = random.Random(log_n)
+    N = 1 << log_n
+    for spec, n_limbs in fields.items():
+        assert spec.n_limbs == n_limbs
+        x = limb.tensor(limb.pack_mont(spec, [rng.randrange(spec.modulus) for _ in range(N)]))
+        for inverse in (False, True):
+            calls.clear()
+            got = ntt._ntt_core(spec, x, inverse)
+            rev, table, n_inv = ntt._plan(spec, log_n, inverse, x.device)
+            assert torch.equal(got, ntt_kernel.transform_plain(spec, x, table, rev, n_inv, inverse))
+            want = {"transform": 1} if n_limbs == 16 else {"stage": log_n, "mont_scale": int(inverse)}
+            assert +calls == collections.Counter(want), (spec.name, inverse)
+
+
+def test_native_converter_leaves_other_radixes_to_python(monkeypatch):
+    """With the native library present, `limb.pack_mont` over a 2-limb
+    field (BabyBear, whose radix 2^32 the converter's 64-bit words do not
+    share) takes the Python conversion and never calls the library; a
+    16-limb field still reaches it."""
+    from openzl_tpu_torch import native
+    from openzl_tpu_torch.fields.spec import FieldSpec
+
+    class Lib:
+        calls = 0
+
+        def ozl_to_mont_limbs16(self, *args):
+            Lib.calls += 1
+
+    monkeypatch.setattr(native, "_lib", lambda: Lib())
+    babybear = FieldSpec("babybear", 2013265921)
+    vals = [0, 1, babybear.modulus - 1, 12345]
+    got = limb.pack_mont(babybear, vals)
+    assert got.tolist() == limb._ints_to_limbs(np.array([v * babybear.R % babybear.modulus for v in vals],
+                                                        dtype=object), 2).tolist()
+    assert Lib.calls == 0
+    limb.pack_mont(BN254_FR, vals)
+    assert Lib.calls == 1
+

@@ -14,16 +14,17 @@ shapes."""
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
 from openzl_tpu_torch.crypto.merkle.tree import MerkleParameters, MerkleTree
 from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
-from openzl_tpu_torch.crypto.poseidon2 import Poseidon2
+from openzl_tpu_torch.crypto.poseidon2 import ROUND_NUMBERS_128, Poseidon2
 from openzl_tpu_torch.curves import jacobian as jac
 from openzl_tpu_torch.curves.spec import BLS12_381_G1, BLS12_381_G2, BN254_G1, BN254_G2
 from openzl_tpu_torch.fields import limb
-from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
+from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR, FieldSpec
 from openzl_tpu_torch.ops import ec_kernel, msm, ntt, ntt_kernel, poseidon2_kernel, poseidon_kernel
 from openzl_tpu_torch.proof_systems import BLS12_381, BN254, KZG, Groth16
 from openzl_tpu_torch.ref import curve as ref
@@ -152,11 +153,13 @@ def test_k8_kernel_and_stage_route_match(cuda):
 
 
 @pytest.mark.parametrize("batch", [1, 3, 4])
-def test_k8_transform_matches_plain_at_every_size(cuda, batch):
+def test_k8_transform_matches_plain_at_every_size(cuda, batch, monkeypatch):
     """K8's one-launch transform against its plain version (Pease stages,
     gather, scale) at every N from 2 to 2^12, forward and inverse, with
-    the wrapper's cluster size and with one block a transform."""
+    the wrapper's cluster sizes and with one block a transform (every
+    `CLUSTER` entry 1)."""
     spec = BN254_FR
+    one_block = {N: 1 for N in ntt_kernel.CLUSTER}
     for log_n in range(1, 13):
         N = 1 << log_n
         x = limb.to_mont(spec, _field(spec, max(N * batch, 4), 60 + log_n)[:, :N * batch])
@@ -165,9 +168,73 @@ def test_k8_transform_matches_plain_at_every_size(cuda, batch):
         for inverse in (False, True):
             rev, table, n_inv = ntt._plan(spec, log_n, inverse, cuda)
             want = ntt_kernel.transform_plain(spec, x, table, rev, n_inv, inverse)
-            for cluster in (None, 1):
-                got = ntt_kernel.transform(spec, x, table, rev, n_inv, inverse, cluster)
-                assert torch.equal(got, want), (N, inverse, cluster)
+            for clusters in (dict(ntt_kernel.CLUSTER), one_block):
+                monkeypatch.setattr(ntt_kernel, "CLUSTER", clusters)
+                got = ntt_kernel.transform(spec, x, table, rev, n_inv, inverse)
+                assert torch.equal(got, want), (N, inverse, clusters[N])
+
+
+#: 16-limb primes k 2^32 + 1 (5 not dividing k) with p's top word at F1c's
+#: bound (0x7FFFFFFF) and at its largest (0xFFFFFFFF): the kernels that
+#: have both fields run these on F1
+F1_PRIMES = [
+    FieldSpec("top_7fffffff", 0x7FFFFFFF00000000000000000000000000000000000000000000004700000001),
+    FieldSpec("top_ffffffff", 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFD500000001),
+]
+
+
+def _root_plan(spec, log_n, inverse, device):
+    """(bit-reversal index, root table, 1/N) of an N-point transform over
+    a prime k 2^32 + 1, from an element of order 2^32."""
+    p, N = spec.modulus, 1 << log_n
+    w = next(w for w in (pow(g, (p - 1) >> 32, p) for g in range(2, 64)) if pow(w, 1 << 31, p) != 1)
+    w = pow(w, 1 << (32 - log_n), p)
+    if inverse:
+        w = pow(w, -1, p)
+    table = limb.tensor(limb.pack_mont(spec, [pow(w, j, p) for j in range(N // 2)]), device)
+    return torch.as_tensor(ntt._bitrev(N), device=device), table, limb.tensor(limb.pack_mont(spec, pow(N, -1, p)),
+                                                                                device)
+
+
+@pytest.mark.parametrize("spec", F1_PRIMES, ids=lambda s: s.name)
+def test_k8_transform_on_f1_matches_plain(cuda, spec):
+    """K8's one-launch transform over primes past F1c's bound (its F1
+    instantiation) against its plain version, 2^1 to 2^12, forward and
+    inverse, batch 1 and 3."""
+    for log_n in (1, 2, 5, 9, 10, 12):
+        N = 1 << log_n
+        for batch in (1, 3):
+            x = limb.to_mont(spec, _field(spec, max(N * batch, 4), 80 + log_n)[:, :N * batch])
+            x = x.reshape(spec.n_limbs, N, batch).to(cuda)
+            x = x[:, :, 0].contiguous() if batch == 1 else x.contiguous()
+            for inverse in (False, True):
+                rev, table, n_inv = _root_plan(spec, log_n, inverse, cuda)
+                got = ntt_kernel.transform(spec, x, table, rev, n_inv, inverse)
+                assert torch.equal(got, ntt_kernel.transform_plain(spec, x, table, rev, n_inv, inverse)), (
+                    N, batch, inverse)
+
+
+#: fields the one-launch transform is not built for: 2 and 24 limbs
+STAGE_FIELDS = [FieldSpec("babybear", 2013265921), FieldSpec(
+    "bls12_377_fq",
+    0x01AE3A4617C510EAC63B05C06CA1493B1A22D9F300F5138F1EF3622FBA094800170B5D44300000008508C00000000001,
+)]
+
+
+@pytest.mark.parametrize("spec", STAGE_FIELDS, ids=lambda s: s.name)
+def test_small_transforms_of_other_fields_run_k8_stages(cuda, spec):
+    """`ntt` and `intt` below the four-step threshold over BabyBear and
+    BLS12-377 Fq on the card: a K8 `stage` launch a stage (the inverse's
+    scale one K1 launch), equal to the CPU route."""
+    for log_n in (1, 4, 10, 12):
+        x = limb.to_mont(spec, _field(spec, max(1 << log_n, 4), 90 + log_n)[:, :1 << log_n])
+        xc = x.to(cuda)
+        for fn, scales in ((ntt.ntt, 0), (ntt.intt, 1)):
+            ntt._plan(spec, log_n, fn is ntt.intt, xc.device)  # the tables, built once by K1 products
+            before = (ntt_kernel.K8.launches, ntt_kernel.K1.launches)
+            got = fn(spec, xc)
+            assert (ntt_kernel.K8.launches - before[0], ntt_kernel.K1.launches - before[1]) == (log_n, scales)
+            assert torch.equal(got.cpu(), fn(spec, x)), (log_n, fn.__name__)
 
 
 def test_small_transform_is_one_k8_launch(cuda):
@@ -343,6 +410,26 @@ def test_k7_kernel_matches_plain_on_the_worst_case_state(cuda, spec, width):
     x = _states(spec, 129, 61 + width, cuda, width)
     x[:, :, :64] = limb.tensor(limb.pack_mont(spec, [spec.modulus - 1]), cuda).reshape(-1, 1, 1)
     perm2 = Poseidon2.create(spec, width - 1, device=cuda)
+    assert torch.equal(poseidon2_kernel.permute(perm2, x), poseidon2_kernel.poseidon2_permute_plain(perm2, x))
+
+
+@pytest.mark.parametrize("spec", F1_PRIMES, ids=lambda s: s.name)
+@pytest.mark.parametrize("width", poseidon2_kernel.KERNEL_WIDTHS)
+def test_k7_kernel_on_f1_matches_plain(cuda, spec, width):
+    """K7 over primes past F1c's bound (its F1 instantiation) at every
+    built width against its plain version, on 129 states, the first 64
+    with every element p - 1, the rest random; seeded round keys and a
+    diagonal of 2 to 40 (the kernel's result does not depend on how they
+    were chosen)."""
+    rng = random.Random(width)
+    p = spec.modulus
+    full, partial = ROUND_NUMBERS_128[width]
+    ext = limb.pack_mont(spec, [[rng.randrange(p) for _ in range(width)] for _ in range(full)])
+    ints = limb.pack_mont(spec, [rng.randrange(p) for _ in range(partial)])
+    diag = tuple(rng.randrange(2, 41) for _ in range(width))
+    perm2 = Poseidon2(spec, width, full, partial, np.moveaxis(ext, 0, 1), np.moveaxis(ints, 0, 1), diag, cuda)
+    x = _states(spec, 129, 71 + width, cuda, width)
+    x[:, :, :64] = limb.tensor(limb.pack_mont(spec, [p - 1]), cuda).reshape(-1, 1, 1)
     assert torch.equal(poseidon2_kernel.permute(perm2, x), poseidon2_kernel.poseidon2_permute_plain(perm2, x))
 
 

@@ -11,12 +11,12 @@ through `fourstep_transform`). K8 stages and the per-stage transforms are also
 held against sums over Python ints (no JAX compile) on BN254 Fr,
 BLS12-381 Fr and BabyBear. K8's one-launch transform's plain version
 (`transform_plain`) is held against the JAX package's `_ntt_core` at 2^1
-to 2^10, forward and inverse, on a batch of 3 and on its first column
-alone (one XLA compile per size and direction, shared by both batches).
+and 2^10, forward and inverse, on a batch of 3 and on its first column
+alone (one XLA compile per size and direction, shared by both batches),
+and against O(N^2) sums over Python ints at every size from 2^1 to 2^10
+on BN254 Fr and at 2^3 and 2^10 on two 16-limb primes past `F1c`'s bound.
 Inputs come from numpy.random.default_rng(seed); every comparison is exact
 equality (tolerance 0)."""
-
-import functools
 
 import os
 
@@ -286,25 +286,70 @@ def test_stage_route_matches_naive_dft(name, log_n):
     ]
 
 
-@functools.lru_cache(maxsize=None)
-def _ref_core(log_n, inverse):
-    """(input, the JAX package's `_ntt_core` of it) for a seeded (N, 3)
-    BN254 Fr input: one XLA compile per size and direction."""
-    x = _rand_mont(BN254_FR, (1 << log_n, 3), 200 + log_n)
-    return x, np.asarray(ref_ntt._ntt_core(BN254_FR, jnp.asarray(x), inverse))
-
-
-@pytest.mark.parametrize("log_n", range(1, 11))
+@pytest.mark.parametrize("log_n", [1, 10])
 def test_transform_plain_matches_reference_core(log_n):
     """K8's plain transform (the Pease stages, the bit-reversal gather and
     the inverse's 1/N scale, with the port's `_plan` tables) against the
     JAX package's `_ntt_core`, forward and inverse, at batch 3 and batch 1
-    (the first column, without a batch axis)."""
+    (the first column, without a batch axis), at the smallest and the
+    largest size (one XLA compile per size and direction; every size in
+    between is held against the naive DFT below)."""
     spec = BN254_FR
+    x = _rand_mont(spec, (1 << log_n, 3), 200 + log_n)
     for inverse in (False, True):
-        x, want = _ref_core(log_n, inverse)
+        want = np.asarray(ref_ntt._ntt_core(spec, jnp.asarray(x), inverse))
         rev, table, n_inv = ntt._plan(spec, log_n, inverse, torch.device("cpu"))
         got = ntt_kernel.transform_plain(spec, limb.tensor(x), table, rev, n_inv, inverse)
         assert np.array_equal(got.numpy().astype(np.uint32), want), inverse
         got1 = ntt_kernel.transform(spec, limb.tensor(np.ascontiguousarray(x[:, :, 0])), table, rev, n_inv, inverse)
         assert np.array_equal(got1.numpy().astype(np.uint32), want[:, :, 0]), inverse
+
+
+#: 16-limb primes k 2^32 + 1 with p's top word at `F1c`'s bound (0x7FFFFFFF)
+#: and at its largest: the kernels run them on F1
+F1_PRIMES = {
+    "top_7fffffff": FieldSpec("top_7fffffff", 0x7FFFFFFF00000000000000000000000000000000000000000000004700000001),
+    "top_ffffffff": FieldSpec("top_ffffffff", 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFD500000001),
+}
+
+
+def _dft_plan(spec, log_n, inverse):
+    """(w, bit-reversal index, root table, 1/N) of an N-point transform:
+    the reference's root for BN254 Fr, else a root of an element of order
+    2^32 of a prime k 2^32 + 1; the table W[j] = w^j, j < N/2."""
+    p, N = spec.modulus, 1 << log_n
+    if spec.name in F1_PRIMES:
+        w = next(w for w in (pow(g, (p - 1) >> 32, p) for g in range(2, 64)) if pow(w, 1 << 31, p) != 1)
+        w = pow(w, 1 << (32 - log_n), p)
+    else:
+        w = ref_ntt.group_gen(spec, log_n)
+    if inverse:
+        w = pow(w, -1, p)
+    table = limb.tensor(ref_limb.pack_mont(spec, np.array([pow(w, j, p) for j in range(N // 2)], dtype=object)))
+    n_inv = limb.tensor(ref_limb.pack_mont(spec, pow(N, -1, p)))
+    return w, torch.as_tensor(ntt._bitrev(N)), table, n_inv
+
+
+@pytest.mark.parametrize("name,log_n", [("bn254_fr", k) for k in range(1, 11)]
+                         + [(name, k) for name in F1_PRIMES for k in (3, 10)])
+def test_transform_plain_matches_naive_dft(name, log_n):
+    """K8's plain transform against O(N^2) sums over Python ints, forward
+    and inverse, on a batch of 2 and on its first column alone: BN254 Fr
+    at every size from 2 to 2^10 with the port's `_plan` tables, and the
+    two primes past `F1c`'s bound (on which the card's transform runs F1)."""
+    spec = BN254_FR if name == "bn254_fr" else F1_PRIMES[name]
+    p, N = spec.modulus, 1 << log_n
+    x = _rand_mont(spec, (N, 2), 300 + log_n)
+    cols = [[int(v) for v in col] for col in _ints(spec, x).T]
+    for inverse in (False, True):
+        w, rev, table, n_inv = _dft_plan(spec, log_n, inverse)
+        if name == "bn254_fr":
+            rev, table, n_inv = ntt._plan(spec, log_n, inverse, torch.device("cpu"))
+        powers = [pow(w, k, p) for k in range(N)]
+        scale = pow(N, -1, p) if inverse else 1
+        want = [[scale * sum(v * powers[i * j % N] for j, v in enumerate(col)) % p for i in range(N)] for col in cols]
+        got = _ints(spec, ntt_kernel.transform_plain(spec, limb.tensor(x), table, rev, n_inv, inverse))
+        assert [[int(v) for v in col] for col in got.T] == want, inverse
+        got1 = _ints(spec, ntt_kernel.transform_plain(spec, limb.tensor(np.ascontiguousarray(x[:, :, 0])), table,
+                                                       rev, n_inv, inverse))
+        assert [int(v) for v in got1] == want[0], inverse

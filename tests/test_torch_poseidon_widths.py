@@ -27,7 +27,9 @@ round numbers, the same Montgomery limbs, the same field elements).
 - The plain K7 on the worst-case state (every element p - 1, the largest
   input of every linear-layer sum the kernel leaves unreduced) at every
   built width over both fields, against the JAX package's `permute_ints`
-  on the port's round keys and diagonal.
+  on the port's round keys and diagonal; and over two 16-limb primes
+  past `F1c`'s bound (the card's K7 runs them on F1) with seeded keys and
+  diagonal.
 - The port's Rabin irreducibility test against the JAX package's.
 - One XLA compile per family: the JAX package's jnp `Poseidon.permute` at
   width 5 and `Poseidon2.permute` at width 2 against the port's `permute`
@@ -48,13 +50,14 @@ from openzl_tpu.crypto.poseidon.permutation import Poseidon as RefPoseidon
 from openzl_tpu.fields import limb as ref_limb
 from openzl_tpu.fields.spec import BLS12_381_FR as REF_BLS12_381_FR
 from openzl_tpu.fields.spec import BN254_FR as REF_BN254_FR
+from openzl_tpu.fields.spec import FieldSpec as RefFieldSpec
 from openzl_tpu.ref import poseidon as ref_oracle
 from openzl_tpu_torch.crypto import poseidon2
 from openzl_tpu_torch.crypto.poseidon import constants
 from openzl_tpu_torch.crypto.poseidon.permutation import ROUND_NUMBERS, Poseidon, round_numbers
 from openzl_tpu_torch.crypto.poseidon2 import Poseidon2
 from openzl_tpu_torch.fields import limb
-from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
+from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR, FieldSpec
 from openzl_tpu_torch.ops import poseidon2_kernel, poseidon_kernel
 
 # xdist workers share the machine's cores: one torch thread each
@@ -203,6 +206,41 @@ def test_poseidon2_plain_takes_the_worst_case_state(field, width, monkeypatch):
     got = [[int(v) for v in col] for col in _ints(spec, poseidon2_kernel.poseidon2_permute_plain(port, state)).T]
     assert got == [ref_p2.permute_ints(ref_spec, width, port.full_rounds, port.partial_rounds, ext, ints, c)
                    for c in cols]
+
+
+#: 16-limb primes k 2^32 + 1 (5 not dividing k) with p's top word at
+#: `F1c`'s bound (0x7FFFFFFF) and at its largest: K7 runs them on F1
+F1_PRIMES = {
+    "top_7fffffff": 0x7FFFFFFF00000000000000000000000000000000000000000000004700000001,
+    "top_ffffffff": 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFD500000001,
+}
+
+
+@pytest.mark.parametrize("width", poseidon2_kernel.KERNEL_WIDTHS)
+@pytest.mark.parametrize("prime", F1_PRIMES)
+def test_poseidon2_plain_on_primes_past_the_carry_chain_bound(prime, width, monkeypatch):
+    """The plain K7 over the two primes the card's K7 runs on F1, with
+    seeded round keys and a diagonal of 2 to 40 (as the card's test of
+    that instantiation builds them), on the worst-case state, a zero state
+    and random ones, against the JAX package's Python-int oracle given the
+    same keys and diagonal."""
+    p = F1_PRIMES[prime]
+    spec, ref_spec = FieldSpec(prime, p), RefFieldSpec(prime, p)
+    rng = np.random.default_rng(width)
+    rand = lambda *shape: np.array([int.from_bytes(rng.bytes(40), "little") % p for _ in range(int(np.prod(shape)))],
+                                   dtype=object).reshape(shape)
+    full, partial = poseidon2.ROUND_NUMBERS_128[width]
+    ext, ints = rand(full, width), rand(partial)
+    diag = tuple(int(d) for d in rng.integers(2, 41, width))
+    port = Poseidon2(spec, width, full, partial, np.moveaxis(limb.pack_mont(spec, ext), 0, 1),
+                     np.moveaxis(limb.pack_mont(spec, ints), 0, 1), diag, torch.device("cpu"))
+    monkeypatch.setattr(ref_p2, "internal_matrix", lambda p, w: diag)
+    vals = rand(width, BATCH)
+    vals[:, 0], vals[:, 1] = p - 1, 0
+    state = limb.tensor(limb.pack_mont(spec, vals), "cpu")
+    got = [[int(v) for v in col] for col in _ints(spec, poseidon2_kernel.poseidon2_permute_plain(port, state)).T]
+    assert got == [ref_p2.permute_ints(ref_spec, width, full, partial, [[int(v) for v in r] for r in ext],
+                                       [int(v) for v in ints], [int(v) for v in col]) for col in vals.T]
 
 
 @pytest.mark.parametrize("field", FIELDS)
