@@ -24,7 +24,12 @@ Phases:
               BLS12-381 Fq at 1, 4 and 2^10 elements, exponents p - 2,
               0, 1 and a random one, each with its bound: the larger of
               its operations bound and its latency bound (squares and
-              products times their latency on one warp)
+              products times their latency on one warp); K2, one
+              four-step level a launch, at every level of the 2^17 plan
+              ([6, 6, 5]) at batch 1 and 3, the first level also with the
+              forward coset's g^i and the last with the inverse's 1/N and
+              1/N g^-i, and the first level over BLS12-377 Fq (24 limbs)
+              and BabyBear (2 limbs)
   3b. kernels K3 (add, madd) and K4 at 24 limbs, over BLS12-381 G1 and G2
               at 2^16 points with every mask case, the same way
   4. roundtrip  port on CUDA against port on CPU, same seeds, 2 chain
@@ -90,7 +95,11 @@ Phases:
               and 4, with its bound, and one stage of 2^12 (batch 1 and
               4); a transform below 2^13 through `ntt._ntt_core` must be
               one K8 launch and no K1 launch; both NTT routes at 2^10 and
-              2^12 with their event and device times, K9
+              2^12 with their event and device times; the whole
+              four-step transforms (`ntt`, `intt`, `coset_ntt`,
+              `coset_intt`) at 2^17, batch 1 and 3, and 2^20: one K2
+              launch a level and no K1 or K8 launch each, the round trips
+              exact, with their event and device times; K9
               against its plain version on the G1 fold of a 2^16-point
               commit, the Fq2 fold of phase 5's B2 MSM and a fold at the
               smallest chunk length r = 1 (bit-exact), with the cost of
@@ -124,6 +133,10 @@ as the last line, {"ok": true, "device": {...}}. Any failure exits non-zero
 with no result. Imports only the port (`openzl_tpu_torch`), never JAX.
 
 Usage: python3 chip_smoke.py [--chain 512] [--proofs 3]
+
+`python3 chip_smoke.py --transforms-of DIR` runs only phase 7's whole
+four-step transforms of the port in checkout DIR (`transforms_of`): the
+parent's and a change's NTT times from one call, run in turns.
 """
 
 from __future__ import annotations
@@ -196,10 +209,11 @@ def _ptxas_key(entry_name: str):
 
 def _poseidon_ptxas_key(entry_name: str):
     """(kernel, template arguments) of a mangled entry name of the Poseidon
-    kernels and K8's transform, e.g. ("slot_kernel", (0, 8)),
+    kernels, K8's transform and K2's level, e.g. ("slot_kernel", (0, 8)),
     ("poseidon_opt_kernel", (3, 8)), ("poseidon2_kernel", (12, 8)) (K7 on
-    F1c; "poseidon2_kernel_f1" on F1) or ("ntt_transform_kernel", (8,))
-    (on F1c), or None for the other kernels."""
+    F1c; "poseidon2_kernel_f1" on F1), ("ntt_transform_kernel", (8,)) or
+    ("fourstep_level_kernel", (8,)) (words; on F1c), or None for the other
+    kernels."""
     import re
 
     m = re.search(r"\d(slot_kernel|poseidon_wide_kernel|poseidon_split_kernel|poseidon_opt_kernel)"
@@ -207,7 +221,8 @@ def _poseidon_ptxas_key(entry_name: str):
                   entry_name)
     if m is not None:
         return m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(2)))
-    m = re.search(r"\d(poseidon2_kernel|ntt_transform_kernel)I(3F1c|2F1)ILi\d+EE((?:Li\d+E)+)E", entry_name)
+    m = re.search(r"\d(poseidon2_kernel|ntt_transform_kernel|fourstep_level_kernel)I(3F1c|2F1)ILi\d+EE((?:Li\d+E)+)E",
+                  entry_name)
     if m is None:
         return None
     return (m.group(1) + ("_f1" if m.group(2) == "2F1" else ""),
@@ -422,6 +437,68 @@ def _pow_work(spec, exponent: int, n: int, latency):
     return (n * _mont_words(spec.n_limbs, products, squares), 2 * n * spec.n_limbs * 4, lat)
 
 
+#: fields of other limb counts whose four-step levels phase 3 checks
+#: (the generators of `ops/ntt.py` GENERATORS)
+BABYBEAR_P = 2013265921
+BLS12_377_FQ_P = 0x01AE3A4617C510EAC63B05C06CA1493B1A22D9F300F5138F1EF3622FBA094800170B5D44300000008508C00000000001
+
+
+def _level_work(spec, log_n: int, batch: int, lm: int, nt: int, pre, post):
+    """(word products, bytes) of one K2 level: per column and lane the DIF's
+    M/2 log2 M products less the M - 1 butterflies whose twiddle is 1, the
+    (M - 1)(S - 1) level twiddles that are not 1 a lane, and one product an
+    element for each scale; the data read once and written once, and each
+    distinct table entry read once (the M/2 stage twiddles, the level
+    twiddles' distinct exponents, the scale tables)."""
+    import numpy as np
+
+    N = 1 << log_n
+    M, S, c = 1 << lm, nt >> lm, N * batch // nt
+    products = S * c * (M // 2 * lm - (M - 1)) + c * (M - 1) * (S - 1)
+    products += N * batch * ((pre is not None) + (post is not None))
+    k1, j2 = np.arange(M), np.arange(S)
+    exps = np.unique((k1[:, None] * j2[None, :]).ravel())
+    entries = M // 2 + np.count_nonzero(exps) + (N if pre is not None else 0)
+    entries += 0 if post is None else post.shape[0]
+    words = spec.n_limbs // 2
+    return _mont_words(spec.n_limbs, products), 2 * N * batch * spec.n_limbs * 4 + entries * words * 4
+
+
+def _level_checks(spec, log_n, batch, rng, dev, results, scales, first_only=False):
+    """K2 against its plain version at each level of the 2^log_n plan
+    (`ntt._fourstep_plan`) at `batch`, with its bound; with `scales`, the
+    first level also with the coset's g^i and the last with 1/N (one
+    element) and with 1/N g^-i (a table)."""
+    from openzl_tpu_torch.ops import ntt, ntt_kernel
+
+    x = _rand_field(spec, batch << log_n, rng, dev).reshape(spec.n_limbs, 1 << log_n, batch).contiguous()
+    levels = tuple(ntt._levels(log_n))
+    shape, roots, _ = ntt._fourstep_plan(spec, log_n, False, levels, dev)
+    n_inv = ntt._fourstep_plan(spec, log_n, True, levels, dev)[2]
+    runs = []
+    for k, (lm, nt) in enumerate(shape[:1] if first_only else shape):
+        runs.append((lm, nt, None, None, ""))
+        if scales and k == 0:
+            runs.append((lm, nt, ntt._coset_scales(spec, 1 << log_n, False, dev, words=True), None, ", coset g^i load"))
+        if scales and k == len(shape) - 1:
+            runs.append((lm, nt, None, n_inv, ", 1/N store"))
+            runs.append((lm, nt, None, ntt._coset_scales(spec, 1 << log_n, True, dev, words=True), ", 1/N g^-i store"))
+    carry = spec.n_limbs > 2 and spec.modulus >> (16 * spec.n_limbs - 32) < 0x7FFFFFFF
+    key = ("fourstep_level_kernel" + ("" if carry else "_f1"), (spec.n_limbs // 2,))
+    for lm, nt, pre, post, label in runs:
+        def kern(lm=lm, nt=nt, pre=pre, post=post):
+            return ntt_kernel.fourstep_level(spec, x, roots, lm, nt, pre, post)
+
+        got = kern()
+        exp = ntt_kernel.level_plain(spec, x, roots, lm, nt, pre, post)
+        ms = _time(kern, 20, dev)
+        pms = _time(lambda: ntt_kernel.level_plain(spec, x, roots, lm, nt, pre, post), 2, dev)
+        S, c = nt >> lm, (batch << log_n) // nt
+        _check("small_ntt", results, [got], [exp], ms, pms,
+               f"{spec.name} 2^{log_n} batch {batch} level M=2^{lm} S={S} c={c}{label}",
+               _level_work(spec, log_n, batch, lm, nt, pre, post), kern, key)
+
+
 def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1, latency=None,
                   pow_sizes=(1, 4, 1 << 10), pow_reps: int = 20):
     """Phase 3; `latency` is phase 2's {(n_limbs, field, op): ns} (None:
@@ -431,7 +508,10 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
     from openzl_tpu_torch.ops import ec_kernel, ntt, ntt_kernel
     from openzl_tpu_torch.proof_systems import BLS12_381, BN254
 
+    from openzl_tpu_torch.fields.spec import FieldSpec
+
     BN254_FR, BN254_FQ, BLS12_381_FQ = BN254.g1.scalar, BN254.g1.base, BLS12_381.g1.base
+    BABYBEAR, BLS12_377_FQ = FieldSpec("babybear", BABYBEAR_P), FieldSpec("bls12_377_fq", BLS12_377_FQ_P)
     BN254_G1, BN254_G2 = BN254.g1, BN254.g2
     dev = torch.device(device)
     rng = random.Random(seed)
@@ -482,25 +562,14 @@ def phase_kernels(device="cuda", log_n: int = 17, log_m: int = 16, seed: int = 1
                        f"{spec.name} e = {label} ({e.bit_length()} bits, n={m})", _pow_work(spec, e, m, latency),
                        lambda: ntt_kernel.mont_pow(spec, a, e))
 
-    # K2: every (M, lanes, post-twiddle) launch of the 2^log_n NTT plan
-    node, _ = ntt._fourstep_plan(BN254_FR, log_n, False, 1, dev)
-    nt, c = n, 1
-    while node is not None:
-        stage_tw, _, level_tw, inner = node
-        M = 2 * stage_tw.shape[2]
-        lanes = nt // M * c
-        x = _rand_field(BN254_FR, M * lanes, rng, dev).reshape(-1, M, lanes).contiguous()
-        got = ntt_kernel.small_ntt(BN254_FR, x, stage_tw, level_tw)
-        exp = ntt_kernel.small_ntt_plain(BN254_FR, x, stage_tw, level_tw)
-        ms = _time(lambda: ntt_kernel.small_ntt(BN254_FR, x, stage_tw, level_tw), 20, dev)
-        pms = _time(lambda: ntt_kernel.small_ntt_plain(BN254_FR, x, stage_tw, level_tw), 2, dev)
-        post = "post-twiddle" if level_tw is not None else "no post"
-        stages = M.bit_length() - 1
-        products = lanes * (M // 2 * stages + (M if level_tw is not None else 0))
-        moved = (2 + (level_tw is not None)) * M * lanes * 16 * 4 + stages * M // 2 * 16 * 4
-        _check("small_ntt", results, [got], [exp], ms, pms, f"M={M} lanes={lanes} {post}",
-               (_mont_words(16, products), moved), lambda: ntt_kernel.small_ntt(BN254_FR, x, stage_tw, level_tw))
-        nt, c, node = nt // M, c * M, inner
+    # K2: every level of the 2^log_n four-step plan at batch 1 and 3, the
+    # first level also with the forward coset's load scales and the last
+    # with the inverse's store scales (1/N, 1/N g^-i); then a level of a
+    # 24-limb (BLS12-377 Fq) and a 2-limb (BabyBear) field
+    for batch in (1, 3):
+        _level_checks(BN254_FR, log_n, batch, rng, dev, results, scales=True)
+    for spec in (BLS12_377_FQ, BABYBEAR):
+        _level_checks(spec, log_n, 1, rng, dev, results, scales=False, first_only=True)
 
     # K3 / K4 over BN254 G1 and G2 at 2^log_m points
     for curve in (BN254_G1, BN254_G2):
@@ -1285,11 +1354,62 @@ def _fold_check(name, results, curve, fold_in, device, reps):
            ("fold_kernel", n_limbs // 2, ext))
 
 
+#: phase 7's whole four-step transforms: (log2 N, batch, transform, K2
+#: launches, ms, device ms)
+FOURSTEP_RUNS = []
+
+#: the keys of a `_fourstep_runs` row
+TRANSFORM_KEYS = ("log_n", "batch", "transform", "launches", "ms", "device_ms", "digest")
+
+
+def _fourstep_runs(spec, log_n, batch, rng, dev, reps, check_launches=True):
+    """`ntt`, `intt`, `coset_ntt` and `coset_intt` of 2^log_n random
+    canonical points (limbs drawn on the host, the top one below p's) at
+    `batch` through the entry points: launches (with `check_launches`, one
+    K2 a level of `ntt._levels` and no K1 or K8 on the card, the plans
+    built first), CUDA events and device time a call, and a digest of the
+    output (two checkouts that compute the same transform print the same
+    digest); intt(ntt(x)) and coset_intt(coset_ntt(x)) must give x back."""
+    import torch
+
+    from openzl_tpu_torch.ops import ntt, ntt_kernel
+
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 30))
+    x = torch.randint(0, 1 << 16, (spec.n_limbs, 1 << log_n, batch), generator=gen, dtype=torch.int32)
+    x[-1] %= spec.modulus >> (16 * spec.n_limbs - 16)  # below p's top limb: canonical
+    x = (x[:, :, 0] if batch == 1 else x).contiguous().to(dev)
+    levels = len(ntt._levels(log_n))
+    rows = []
+    for fn, back in ((ntt.ntt, ntt.intt), (ntt.intt, None), (ntt.coset_ntt, ntt.coset_intt), (ntt.coset_intt, None)):
+        y = fn(spec, x)  # builds the plans
+        for k in (ntt_kernel.K2, ntt_kernel.K1, ntt_kernel.K8):
+            k.reset()
+        y = fn(spec, x)
+        launches = (ntt_kernel.K2.launches, ntt_kernel.K1.launches, ntt_kernel.K8.launches)
+        if check_launches and dev.type == "cuda" and launches != (levels, 0, 0):
+            fail(f"{fn.__name__} of 2^{log_n} at batch {batch} made {launches} K2, K1, K8 launches, not "
+                 f"({levels}, 0, 0)")
+        if back is not None and not torch.equal(back(spec, y), x):
+            fail(f"{back.__name__}({fn.__name__}(x)) is not x at 2^{log_n}, batch {batch}")
+        weights = torch.arange(1, y[0].numel() + 1, device=dev, dtype=torch.int64).reshape(y.shape[1:])
+        digest = int(((y.to(torch.int64) * weights) % 1_000_000_007).sum())
+        ms = _time(lambda: fn(spec, x), reps, dev)
+        dms = _device_ms(lambda: fn(spec, x), 10)
+        rows.append((log_n, batch, fn.__name__, launches[0], ms, dms, digest))
+        dtext = f"{dms:.4f} ms" if dms is not None else "not measured"
+        log(f"[kzg] {spec.name} {fn.__name__} 2^{log_n} batch {batch}: {launches[0]} K2 launches ({levels} levels), "
+            f"{launches[1]} K1, {launches[2]} K8; {ms:.4f} ms (CUDA events on the card), device {dtext}, "
+            f"digest {digest}")
+    return rows
+
+
 def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int = 20, log_mul: int = 11,
-              reps: int = 20, seed: int = 7, pairing=None):
+              reps: int = 20, seed: int = 7, pairing=None, fourstep_sizes=((17, 1), (17, 3), (20, 1))):
     """Phase 7 over BN254 (`pairing` None), or phase 7b over another
     pairing (BLS12-381: K9 and every group-law launch at 24 limbs).
-    Returns (kernel results, launches of the slice's kernels)."""
+    Returns (kernel results, launches of the slice's kernels); the whole
+    four-step transforms at `fourstep_sizes` (log2 N, batch) go to
+    FOURSTEP_RUNS."""
     import torch
 
     from openzl_tpu_torch.curves import jacobian as jac
@@ -1381,6 +1501,14 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
         log(f"[kzg] NTT 2^{log_n} {spec.name}: per-stage route (one K8 launch) {t_stage:.4f} ms, four-step route "
             f"(K2) {t_four:.4f} ms (CUDA events on the card); device time {dev_ms}; the same evaluations")
 
+    # the whole four-step transforms: the prover's 2^17 at batch 1 and 3
+    # and KZG's 2^20, each of the four one K2 launch a level and nothing
+    # else, with their event and device times; the round trips must give
+    # the input back
+    if pairing is BN254:
+        for log_n, batch in fourstep_sizes:
+            FOURSTEP_RUNS.extend(_fourstep_runs(spec, log_n, batch, rng, dev, reps))
+
     # K9: the G1 fold of a 2^log_d-point commit, the Fq2 fold of phase 5's B2
     kzg = KZG(pairing, backend="device", device=dev)
     d = (1 << log_d) - 1
@@ -1470,12 +1598,41 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
     return results, launches
 
 
+def transforms_of(root: pathlib.Path, reps: int = 20, seed: int = 7) -> None:
+    """Phase 7's whole four-step transforms alone (`_fourstep_runs`, BN254
+    Fr at 2^17, batch 1 and 3, and 2^20) of the port in checkout `root`,
+    so that two commits are timed on one card in one call (parent, change,
+    change, parent); the launches are printed, not checked. Prints the
+    rows as one JSON line and no contract line."""
+    if not (root / "openzl_tpu_torch").is_dir():
+        fail(f"{root} holds no openzl_tpu_torch")
+    sys.path.insert(0, str(root))
+    _, smi = phase_device()
+
+    import torch
+
+    import openzl_tpu_torch
+    from openzl_tpu_torch.fields.spec import BN254_FR
+
+    if pathlib.Path(openzl_tpu_torch.__file__).resolve().parents[1] != root:
+        fail(f"imported {openzl_tpu_torch.__file__}, not the port under {root}")
+    rng, dev, rows = random.Random(seed), torch.device("cuda"), []
+    for log_n, batch in ((17, 1), (17, 3), (20, 1)):
+        rows += _fourstep_runs(BN254_FR, log_n, batch, rng, dev, reps, check_launches=False)
+    log(json.dumps({"root": str(root), "device": smi, "transforms": [dict(zip(TRANSFORM_KEYS, r)) for r in rows]}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--chain", type=int, default=512, help="Poseidon chain links of the slices")
     ap.add_argument("--proofs", type=int, default=3, help="prove requests answered")
+    ap.add_argument("--transforms-of", metavar="DIR",
+                    help="only time phase 7's whole four-step transforms of the port in checkout DIR")
     args = ap.parse_args()
 
+    if args.transforms_of:
+        transforms_of(pathlib.Path(args.transforms_of).resolve())
+        return
     if not (ROOT / "openzl_tpu_torch").is_dir():
         fail("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
@@ -1605,10 +1762,13 @@ def main() -> None:
             row["bn254_ptxas"] = ptx(runs[0][6])
         elif runs[0][6] is not None:
             row["ptxas"] = ptx(runs[0][6])
-        if k.name in ("mont_mul", "mont_pow"):
-            # each run (2^17 and narrow products; every exponentiation case)
-            # with its device time
+        if k.name in ("mont_mul", "mont_pow", "small_ntt"):
+            # each run (2^17 and narrow products; every exponentiation case;
+            # every four-step level) with its device time
             row["runs"] = [run_row(r) for r in runs]
+        if k.name == "small_ntt":
+            # phase 7's whole transforms through the entry points
+            row["transforms"] = [dict(zip(TRANSFORM_KEYS, r)) for r in FOURSTEP_RUNS]
         if k.name == "poseidon2_permute":
             # the bound that also counts the linear layers' least additions
             row["bound_with_additions_ms"] = bound(K7_LINEAR["bn254_fr", 3][2])[0]

@@ -277,8 +277,8 @@ OZL_HD void mac_row(uint32_t* t, const uint32_t* a, uint32_t b, Carry& cc) {
 }
 
 // F1 with the Montgomery product and square on carry chains, the square
-// and the product-sum reduced once (K1's exponentiation, K3-K7, K8's
-// transform and K9; K1's product, K2 and K8's stage keep F1).
+// and the product-sum reduced once (K1's exponentiation, K2, K3-K7, K8's
+// transform and K9; K1's product and K8's stage keep F1).
 // Needs p < 2^(32 NW - 1) - 2^(32 NW - 33) (top word below 0x7FFFFFFF:
 // BN254 Fr and Fq, BLS12-381 Fr), so that a CIOS step fits NW + 1 words.
 template <int NW>

@@ -1,6 +1,7 @@
 // K1: elementwise Montgomery product and, through the same field code, the
-// Montgomery exponentiation; K2: batched M-point DIF NTT; K8: a whole
-// transform below 2^13 in one launch, and one radix-2 butterfly stage.
+// Montgomery exponentiation; K2: one level of the four-step transform (from
+// 2^13) in one launch; K8: a whole transform below 2^13 in one launch, and
+// one radix-2 butterfly stage.
 //
 // K1 replaces openzl_tpu/ops/ntt_kernel.py `_make_mul_kernel` (:56, through
 // `mont_mul()` :259 and `mont_scale()` :268). One thread per element; the
@@ -31,18 +32,43 @@
 // took 0.1917 ms of device time on F1c against F1's 0.2297 over BN254 Fq,
 // 0.6852 against 0.7986 over BLS12-381 Fq (PERF.md).
 //
-// K2 replaces `_make_small_ntt_kernel` (:160, through `small_ntt()` :200):
-// all log2(M) decimation-in-frequency stages of an M-point transform along
-// axis 1 of x (n_limbs, M, lanes), output in bit-reversed order along M,
-// with an optional fused elementwise post-twiddle (the four-step level
-// twiddle). A block owns COLS lanes; its M x COLS elements and the stage
-// twiddles are staged in shared memory once, every stage runs on them with
-// one thread per butterfly, and the result is written once. Bound: the
-// M/2 log2(M) Montgomery products per lane (compute), so the design reads
-// and writes each element once per launch instead of once per stage. The
-// TPU's M <= 64 and rolled-stage layout were VMEM artefacts; here M is any
-// power of two up to 64 chosen by the caller, and the twiddle table is
-// (n_limbs, log2 M, M/2) with entry j of stage s = w_M^(2^s j).
+// K2 replaces `_make_small_ntt_kernel` (:160, through `small_ntt()` :200),
+// and with it the route around it (openzl_tpu/ops/ntt.py
+// `fourstep_transform`: the level twiddle, the bit-reversal gather and the
+// transpose): ONE launch runs one level of the four-step transform
+// (`ozl_fourstep_level`, block code ntt.cuh `fourstep_level_block`). A
+// level reads x as (M, S, c), M <= 2^9 rows of S columns of c lanes, and
+// writes (S, M, c): the M-point DFT of each (column, lane), times the
+// level twiddle w_nt^(k1 j2), in natural order, which is the next level's
+// input layout; the last level (S = 1) writes the transform. A 2^17
+// transform is 3 launches ([6, 6, 5]), where the route before took 3 K2
+// launches, 3 gathers, 2 transposes, a full-size level-twiddle table read
+// per level, and a K1 scale for the inverse. Bound: the products (the
+// DIF's M/2 log2 M per lane less the butterflies whose twiddle is 1, the
+// level twiddles that are not 1, the scales) against the issue rate at M =
+// 64, with the data read and written once close behind (at 2^17, batch 1,
+// 0.0062 and 0.0061 ms of products against 0.0055 and 0.0050 of bytes);
+// the M = 32 level is bound by its bytes (0.0050 ms against 0.0032 of
+// products). The design: a block loads a tile of lanes x M rows coalesced
+// into shared memory as 32-bit words (row stride lanes + 1 words: a pass's
+// and the store's warps spread over the banks), runs the DIF in passes of
+// two radix-2 stages with each thread's four points in registers (radix 4;
+// at M = 64 three passes, where the kernel before took one barrier and one
+// shared-memory round trip a stage; radix 8 needs 160 registers at 8 words
+// and ran 1.6-1.8x slower), leaves out every product by a twiddle of 1, reads
+// the stage twiddles from M/2 words in shared memory and the level twiddle
+// by index from the word-packed root table (N x NW words, cached in L2; it
+// does not grow with the batch), and stores the rows bit-reversed by
+// index, walking contiguous runs of the output. The forward coset's g^i
+// multiplies the first level's load and the inverse's 1/N (1/N g^-i for
+// the coset inverse) the last level's store, so the coset transforms take
+// no K1 launch. It runs at about a quarter of its bound on the H100
+// (PERF.md), at the same time an element at batch 1 and 3, whatever the
+// warps in flight. The cause is not profiled; the hypothesis is the
+// integer pipe: each carry op of F1c is an IMAD and an IADD3 (the SASS of
+// K1's product), and the butterflies' additions and selects share that
+// pipe. F1c where p's top word allows (F1 ran 5-10% slower at the same
+// shapes), F1 otherwise; 2-, 16- and 24-limb fields.
 //
 // K8 replaces `_make_butterfly_kernel` (:44, through `butterfly()` :244):
 // lo = u + t, hi = (u - t) w, as the reference's per-stage route
@@ -151,99 +177,6 @@ int launch_mont_pow(void* out, const void* a, int64_t N, const void* e, int bits
     }
   }
   start_pow<F1<NW>, NW>((unsigned)blocks, threads, st, out, a, N, e, bits, f, one);
-  return (int)cudaGetLastError();
-}
-
-// shared layout: data[w][row][col] then tw[s][j][w]
-template <int NW>
-__global__ void small_ntt_kernel(int32_t* out, const int32_t* x, const int32_t* stage_tw,
-                                 const int32_t* post_tw, int M, int log_m, int64_t lanes,
-                                 int cols, FieldParams<NW> f) {
-  extern __shared__ uint32_t sm[];
-  uint32_t* data = sm;
-  uint32_t* tw = sm + (size_t)NW * M * cols;
-  const int half = M / 2;
-  const int tx = threadIdx.x;  // lane within the block
-  const int ty = threadIdx.y;  // butterfly index
-  const int64_t lane = (int64_t)blockIdx.x * cols + tx;
-  const bool live = lane < lanes;
-  F1<NW> F{f};
-
-  // stage twiddles, (n_limbs, log_m, half) limbs -> words
-  const int n_tw = log_m * half;
-  for (int e = ty * cols + tx; e < n_tw; e += cols * half) {
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      uint32_t lo = (uint32_t)stage_tw[(int64_t)(2 * w) * n_tw + e];
-      uint32_t hi = (uint32_t)stage_tw[(int64_t)(2 * w + 1) * n_tw + e];
-      tw[(size_t)e * NW + w] = lo | (hi << 16);
-    }
-  }
-  const int64_t ls = (int64_t)M * lanes;  // limb stride of x / out / post
-  const int rows[2] = {ty, ty + half};
-  if (live) {
-    for (int r = 0; r < 2; ++r) {
-      Fp<NW> v = load_fp<NW>(x, ls, (int64_t)rows[r] * lanes + lane);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) data[((size_t)w * M + rows[r]) * cols + tx] = v.w[w];
-    }
-  }
-  __syncthreads();
-
-  for (int s = 0; s < log_m; ++s) {
-    const int h = M >> (s + 1);
-    const int blk = ty / h, i = ty % h;
-    const int ur = blk * 2 * h + i, tr = ur + h;
-    if (live) {
-      Fp<NW> u, t, wv;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        u.w[w] = data[((size_t)w * M + ur) * cols + tx];
-        t.w[w] = data[((size_t)w * M + tr) * cols + tx];
-        wv.w[w] = tw[((size_t)s * half + i) * NW + w];
-      }
-      Fp<NW> lo = F.add(u, t);
-      Fp<NW> hi = F.mul(F.sub(u, t), wv);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        data[((size_t)w * M + ur) * cols + tx] = lo.w[w];
-        data[((size_t)w * M + tr) * cols + tx] = hi.w[w];
-      }
-    }
-    __syncthreads();
-  }
-
-  if (!live) return;
-  for (int r = 0; r < 2; ++r) {
-    Fp<NW> v;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) v.w[w] = data[((size_t)w * M + rows[r]) * cols + tx];
-    const int64_t idx = (int64_t)rows[r] * lanes + lane;
-    if (post_tw) v = F.mul(v, load_fp<NW>(post_tw, ls, idx));
-    store_fp<NW>(out, ls, idx, v);
-  }
-}
-
-template <int NW>
-int launch_small_ntt(void* out, const void* x, const void* stage_tw, const void* post_tw, int M,
-                     int64_t lanes, const uint32_t* p, uint32_t n0, cudaStream_t st) {
-  if (M < 2 || M > 64 || (M & (M - 1))) return (int)cudaErrorInvalidValue;
-  int log_m = 0;
-  while ((1 << log_m) < M) ++log_m;
-  const int half = M / 2;
-  const int cols = 256 / half > 0 ? 256 / half : 1;
-  size_t smem = sizeof(uint32_t) * NW * ((size_t)M * cols + (size_t)log_m * half);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(small_ntt_kernel<NW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int64_t blocks = (lanes + cols - 1) / cols;
-  dim3 block(cols, half);
-  if (blocks > 0)
-    small_ntt_kernel<NW><<<(unsigned)blocks, block, smem, st>>>(
-        (int32_t*)out, (const int32_t*)x, (const int32_t*)stage_tw, (const int32_t*)post_tw, M,
-        log_m, lanes, cols, make_params<NW>(p, n0));
   return (int)cudaGetLastError();
 }
 
@@ -361,6 +294,67 @@ int launch_transform(void* out, const void* x, const void* table, const void* n_
   return start_transform<F1<NW>, NW>(out, x, table, n_inv, L, B, C, f, st);
 }
 
+// K2: one four-step level per launch, a block a tile (ntt.cuh
+// `fourstep_level_block`); the block's T threads take the items of its
+// largest pass, at most 256: a 256-thread bound leaves a thread up to 255
+// registers, which eight points of twelve words in registers need
+template <class F, int NW>
+__global__ void __launch_bounds__(256)
+    fourstep_level_kernel(int32_t* out, const int32_t* x, const uint32_t* roots, const uint32_t* pre,
+                          const uint32_t* post, int post_one, int LN, int LM, int S, int c, int B, int TL,
+                          FieldParams<NW> f) {
+  extern __shared__ uint32_t sm[];
+  const F Fd = make_field<F, NW>(f);
+  BlockCtx ctx{(int)threadIdx.x, (int)blockDim.x, 0, 1, sm};
+  fourstep_level_block<F, NW>(Fd, ctx, sm, out, x, roots, pre, post, post_one != 0, LN, LM, S, c, B, TL,
+                                 (int)blockIdx.x);
+}
+
+// largest level (M = 2^kLevelMaxLog points) and tile (lanes a block)
+constexpr int kLevelMaxLog = 9;
+constexpr int kLevelMaxTile = 256;
+
+template <class F, int NW>
+int start_level(void* out, const void* x, const void* roots, const void* pre, const void* post, int post_one,
+                int LN, int LM, int64_t S, int64_t c, int64_t B, int TL, const FieldParams<NW>& f,
+                cudaStream_t st) {
+  const int M = 1 << LM;
+  const size_t smem = sizeof(uint32_t) * NW * ((size_t)M * (TL + 1) + M / 2);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(fourstep_level_kernel<F, NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int passes = (LM + kLevelPass - 1) / kLevelPass, a_max = (LM + passes - 1) / passes;
+  int threads = (M >> a_max) * TL;
+  threads = threads < 32 ? 32 : threads > 256 ? 256 : threads;
+  const int tiles = level_tiles((int)S, (int)c, TL);
+  fourstep_level_kernel<F, NW><<<(unsigned)tiles, threads, smem, st>>>(
+      (int32_t*)out, (const int32_t*)x, (const uint32_t*)roots, (const uint32_t*)pre, (const uint32_t*)post,
+      post_one, LN, LM, (int)S, (int)c, (int)B, TL, f);
+  return (int)cudaGetLastError();
+}
+
+// 1 <= LM <= min(LN, kLevelMaxLog), S a power of two with M S <= N, c B
+// given with M S c = N B < 2^31 (32-bit indices within a level), TL a
+// power of two up to kLevelMaxTile
+template <int NW>
+int launch_level(void* out, const void* x, const void* roots, const void* pre, const void* post, int post_one,
+                 int LN, int LM, int64_t S, int64_t c, int64_t B, int TL, const uint32_t* p, uint32_t n0,
+                 cudaStream_t st) {
+  if (LM < 1 || LM > kLevelMaxLog || LM > LN || LN > 40 || S < 1 || (S & (S - 1)) || c < 1 || B < 1 ||
+      TL < 1 || TL > kLevelMaxTile || (TL & (TL - 1)) || ((int64_t)1 << LM) * S * c != ((int64_t)1 << LN) * B ||
+      ((int64_t)1 << LN) * B >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const FieldParams<NW> f = make_params<NW>(p, n0);
+  if constexpr (NW >= 2) {
+    if (carry_chains<NW>(p))
+      return start_level<F1c<NW>, NW>(out, x, roots, pre, post, post_one, LN, LM, S, c, B, TL, f, st);
+  }
+  return start_level<F1<NW>, NW>(out, x, roots, pre, post, post_one, LN, LM, S, c, B, TL, f, st);
+}
+
 }  // namespace
 
 extern "C" int ozl_butterfly(const void* u, const void* t, int64_t in_ls, const void* tw,
@@ -414,19 +408,6 @@ extern "C" int ozl_mont_pow(void* out, const void* a, int64_t N, const void* e, 
   }
 }
 
-extern "C" int ozl_small_ntt(void* out, const void* x, const void* stage_tw, const void* post_tw,
-                             int M, int64_t lanes, int n_limbs, const void* p, uint32_t n0,
-                             void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint32_t* pw = (const uint32_t*)p;
-  switch (n_limbs) {
-    case 2: return launch_small_ntt<1>(out, x, stage_tw, post_tw, M, lanes, pw, n0, st);
-    case 16: return launch_small_ntt<8>(out, x, stage_tw, post_tw, M, lanes, pw, n0, st);
-    case 24: return launch_small_ntt<12>(out, x, stage_tw, post_tw, M, lanes, pw, n0, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 // The N = 2^log_n point transform of every column of x (n_limbs, N, B)
 // into out, natural order in and out, with the root table (n_limbs, N/2)
 // of W[j] = w^j and, for the inverse, the 1/N scale n_inv (n_limbs, or
@@ -437,4 +418,22 @@ extern "C" int ozl_ntt_transform(void* out, const void* x, const void* table, co
   if (n_limbs != 16) return (int)cudaErrorInvalidValue;
   return launch_transform<8>(out, x, table, n_inv, log_n, B, cluster, (const uint32_t*)p, n0,
                              (cudaStream_t)stream);
+}
+
+// One level of the four-step transform of N = 2^log_n points of a batch
+// of B (x and out (n_limbs, N, B)): x as (M, S, c) with M = 2^log_m, out
+// as (S, M, c) (ntt.cuh `fourstep_level_block`); roots (N, NW) words of
+// w_N^j; pre (N, NW) words or null; post (N, NW) words, or one element
+// where post_one, or null; `tile` lanes a block
+extern "C" int ozl_fourstep_level(void* out, const void* x, const void* roots, const void* pre, const void* post,
+                                  int post_one, int log_n, int log_m, int64_t S, int64_t c, int64_t B, int tile,
+                                  int n_limbs, const void* p, uint32_t n0, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* pw = (const uint32_t*)p;
+  switch (n_limbs) {
+    case 2: return launch_level<1>(out, x, roots, pre, post, post_one, log_n, log_m, S, c, B, tile, pw, n0, st);
+    case 16: return launch_level<8>(out, x, roots, pre, post, post_one, log_n, log_m, S, c, B, tile, pw, n0, st);
+    case 24: return launch_level<12>(out, x, roots, pre, post, post_one, log_n, log_m, S, c, B, tile, pw, n0, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

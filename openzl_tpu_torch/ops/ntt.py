@@ -19,22 +19,23 @@ Two routes, split at the reference's `_FOURSTEP_MIN` = 2^13:
     2k + 1, twiddle w^(k & ~(2^s - 1)) read from the root table by index),
     then one bit-reversal gather;
   * from it on, `fourstep_transform`: a four-step (Bailey) decomposition
-    N = n1 x n2 applied recursively. Each level runs an n1-point transform
-    over the columns in ONE launch of kernel K2 (all DIF stages in shared
-    memory, with the level twiddle w_N^(j1 k2) fused as its post-multiply),
-    un-reverses the rows with one gather, transposes, and recurses on the
-    rows. Level sizes are balanced powers of two of at most K2's 64 points
-    (2^17 = 64 x 64 x 32).
+    N = n1 x n2 applied recursively, ONE launch of kernel K2 a level
+    (`ntt_kernel.fourstep_level`): the level's n1-point DFT of every
+    column, the level twiddle w_nt^(k1 j2), the bit reversal and the
+    transpose into the next level's layout, read and written once. Level
+    sizes are balanced powers of two of at most `ntt_kernel.M_MAX` = 64
+    points (2^17 = 64 x 64 x 32: three launches). The forward coset's
+    scales g^i ride in the first level's load, the inverse's 1/N (and the
+    coset inverse's g^-i) in the last level's store.
 
-The 1/N scale outside the one launch and the coset scales are kernel K1
-products.
+Below 2^13 the 1/N scale outside the one launch (other fields) and the
+coset scales are kernel K1 products.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
 from ..fields.spec import FieldSpec
@@ -78,14 +79,7 @@ def _levels(log_n: int) -> list:
     return [base + 1] * extra + [base] * (k - extra)
 
 
-def _bitrev(m: int) -> np.ndarray:
-    log = m.bit_length() - 1
-    idx = np.arange(m, dtype=np.int64)
-    r = np.zeros(m, dtype=np.int64)
-    for _ in range(log):
-        r = (r << 1) | (idx & 1)
-        idx >>= 1
-    return r
+_bitrev = ntt_kernel.bitrev
 
 
 def _root_powers(spec: FieldSpec, log_n: int, inverse: bool, dev) -> torch.Tensor:
@@ -96,65 +90,51 @@ def _root_powers(spec: FieldSpec, log_n: int, inverse: bool, dev) -> torch.Tenso
     return limb.geom_series_mont(spec, 1, w, 1 << log_n, dev)
 
 
-def _stage_twiddles(R: torch.Tensor, n: int, m: int) -> torch.Tensor:
-    """(n_limbs, log2 m, m/2): entry j of stage s is w_m^(2^s j)."""
-    log_m = m.bit_length() - 1
-    j = torch.arange(m // 2, dtype=torch.int64, device=R.device)
-    return torch.stack([R[:, ((n // m) << s) * j % n] for s in range(log_m)], dim=1)
-
-
-def _build_node(R, n, levels, nt, c):
-    """(stage_tw, br, level_tw, inner) for a length-nt transform carrying c
-    lanes per element; level_tw rows are in K2's bit-reversed output order
-    (level_tw[r, k2] = w_nt^(bitrev(r) k2)), tiled over the c lanes."""
-    n1 = 1 << levels[0]
-    br = torch.as_tensor(_bitrev(n1), device=R.device)
-    stage_tw = _stage_twiddles(R, n, n1)
-    if n1 == nt:
-        return stage_tw, br, None, None
-    n2 = nt // n1
-    e = (n // nt) * br[:, None] * torch.arange(n2, device=R.device)[None, :] % n
-    level_tw = R[:, e].unsqueeze(-1).expand(-1, -1, -1, c).reshape(R.shape[0], n1, n2 * c)
-    return stage_tw, br, level_tw, _build_node(R, n, levels[1:], n2, n1 * c)
-
-
 @functools.lru_cache(maxsize=32)
-def _fourstep_plan(spec: FieldSpec, log_n: int, inverse: bool, batch: int, dev: torch.device):
+def _fourstep_plan(spec: FieldSpec, log_n: int, inverse: bool, levels: tuple, dev: torch.device):
+    """((log2 M, nt) of each level of the split `levels`, the word-packed
+    root table (N, NW) of w^j (w^-1 for the inverse), and for the inverse
+    1/N as one word-packed element)."""
     n = 1 << log_n
-    R = _root_powers(spec, log_n, inverse, dev)
-    node = _build_node(R, n, _levels(log_n), n, batch)
-    n_inv = limb.tensor(limb.pack_mont(spec, pow(n, -1, spec.modulus)), dev) if inverse else None
-    return node, n_inv
+    roots = ntt_kernel.to_words(spec, _root_powers(spec, log_n, inverse, dev))
+    shape, nt = [], n
+    for lm in levels:
+        shape.append((lm, nt))
+        nt >>= lm
+    n_inv = None
+    if inverse:
+        n_inv = ntt_kernel.to_words(spec, limb.tensor(limb.pack_mont(spec, pow(n, -1, spec.modulus)), dev))
+    return tuple(shape), roots, n_inv
 
 
-def _apply_node(spec, x, node):
-    """x (n_limbs, nt, c): transform along axis 1, natural order out."""
-    stage_tw, br, level_tw, inner = node
-    n, nt, c = x.shape
-    if inner is None:
-        return ntt_kernel.small_ntt(spec, x.contiguous(), stage_tw)[:, br]
-    n1 = 2 * stage_tw.shape[2]
-    n2 = nt // n1
-    y = ntt_kernel.small_ntt(spec, x.reshape(n, n1, n2 * c).contiguous(), stage_tw, level_tw)
-    z = y[:, br]  # natural-order j1 rows
-    w = z.reshape(n, n1, n2, c).permute(0, 2, 1, 3).reshape(n, n2, n1 * c)
-    return _apply_node(spec, w, inner).reshape(n, nt, c)
-
-
-def fourstep_transform(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """The four-step route at any power-of-two size (n_limbs, N, *batch)."""
+def _fourstep(spec: FieldSpec, x: torch.Tensor, inverse: bool, coset: bool) -> torch.Tensor:
+    """The four-step route along axis 1 of x (n_limbs, N, *batch): one
+    `ntt_kernel.fourstep_level` (a K2 launch on the card) a level, the
+    first level's load times g^i for the forward coset transform, the last
+    level's store times 1/N (the inverse) or 1/N g^-i (the coset inverse)."""
     n_l, N = x.shape[0], x.shape[1]
     if N & (N - 1):
         raise ValueError("domain size must be a power of two")
     if N == 1:
         return x
-    batch = x.shape[2:]
-    b = int(np.prod(batch)) if batch else 1
-    node, n_inv = _fourstep_plan(spec, N.bit_length() - 1, inverse, b, x.device)
-    out = _apply_node(spec, x.reshape(n_l, N, b), node)
-    if inverse:
-        out = ntt_kernel.mont_scale(spec, out.contiguous(), n_inv)
-    return out.reshape(x.shape)
+    log_n = N.bit_length() - 1
+    shape, roots, n_inv = _fourstep_plan(spec, log_n, inverse, tuple(_levels(log_n)), x.device)
+    scales = _coset_scales(spec, N, inverse, x.device, words=True) if coset else None
+    y = x.reshape(n_l, N, -1).contiguous()
+    for k, (lm, nt) in enumerate(shape):
+        pre = scales if k == 0 and coset and not inverse else None
+        post = None
+        if k == len(shape) - 1 and inverse:
+            post = scales if coset else n_inv
+        y = ntt_kernel.fourstep_level(spec, y, roots, lm, nt, pre, post)
+    return y.reshape(x.shape)
+
+
+def fourstep_transform(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The four-step route at any power-of-two size (n_limbs, N, *batch):
+    balanced levels of at most `ntt_kernel.M_MAX` points (2^17 = 64 x 64 x
+    32), one K2 launch a level on the card."""
+    return _fourstep(spec, x, inverse, False)
 
 
 #: below this size the per-stage route runs (the reference's threshold)
@@ -194,13 +174,16 @@ def _ntt_core(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     return x
 
 
-def _transform(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+def _transform(spec: FieldSpec, x: torch.Tensor, inverse: bool, coset: bool = False) -> torch.Tensor:
     N = x.shape[1]
     if N & (N - 1):
         raise ValueError("domain size must be a power of two")
-    if N < _FOURSTEP_MIN:
-        return _ntt_core(spec, x, inverse)
-    return fourstep_transform(spec, x, inverse)
+    if N >= _FOURSTEP_MIN:
+        return _fourstep(spec, x, inverse, coset)
+    if coset and not inverse:
+        x = _coset_mul(spec, x, False)
+    x = _ntt_core(spec, x, inverse)
+    return _coset_mul(spec, x, True) if coset and inverse else x
 
 
 def ntt(spec: FieldSpec, coeffs: torch.Tensor) -> torch.Tensor:
@@ -213,12 +196,16 @@ def intt(spec: FieldSpec, evals: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def _coset_scales(spec: FieldSpec, n: int, inverse: bool, dev: torch.device) -> torch.Tensor:
-    """(n_limbs, n) Montgomery limbs of g^i (g^-i for the inverse)."""
-    g = GENERATORS[spec.name]
+def _coset_scales(spec: FieldSpec, n: int, inverse: bool, dev: torch.device, words: bool = False) -> torch.Tensor:
+    """Montgomery g^i (g^-i for the inverse), i < n: (n_limbs, n) limbs, the
+    per-stage route's K1 scales; with `words`, the four-step route's
+    word-packed (n, NW) level scales, the inverse's times 1/N (its last
+    level's store takes both)."""
+    g, p = GENERATORS[spec.name], spec.modulus
     if inverse:
-        g = pow(g, -1, spec.modulus)
-    return limb.geom_series_mont(spec, 1, g, n, dev)
+        g = pow(g, -1, p)
+    series = limb.geom_series_mont(spec, pow(n, -1, p) if inverse and words else 1, g, n, dev)
+    return ntt_kernel.to_words(spec, series) if words else series
 
 
 def _coset_mul(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -227,9 +214,12 @@ def _coset_mul(spec: FieldSpec, x: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 
 def coset_ntt(spec: FieldSpec, coeffs: torch.Tensor) -> torch.Tensor:
-    """Evaluate on the coset g H: scale coefficient i by g^i, then NTT."""
-    return ntt(spec, _coset_mul(spec, coeffs, False))
+    """Evaluate on the coset g H: scale coefficient i by g^i, then NTT (on
+    the four-step route, inside its first level)."""
+    return _transform(spec, coeffs, False, True)
 
 
 def coset_intt(spec: FieldSpec, evals: torch.Tensor) -> torch.Tensor:
-    return _coset_mul(spec, intt(spec, evals), True)
+    """iNTT, then scale coefficient i by g^-i (on the four-step route,
+    inside its last level, with the 1/N)."""
+    return _transform(spec, evals, True, True)

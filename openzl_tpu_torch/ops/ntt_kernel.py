@@ -1,7 +1,7 @@
 """Kernels K1 (elementwise Montgomery product, and the Montgomery
-exponentiation through the same field code), K2 (batched small NTT) and
-K8 (radix-2 butterflies: a whole transform below 2^13 in one launch, and
-one stage).
+exponentiation through the same field code), K2 (one level of the
+four-step NTT in one launch) and K8 (radix-2 butterflies: a whole
+transform below 2^13 in one launch, and one stage).
 
 Port of `openzl_tpu/ops/ntt_kernel.py`. The CUDA sources are
 `openzl_tpu_torch/csrc/ntt_kernel.cu` (design notes there); this module
@@ -42,11 +42,6 @@ K8 = build.KernelInfo(
     source="openzl_tpu_torch/csrc/ntt_kernel.cu",
     replaces="openzl_tpu/ops/ntt_kernel.py:44",
 )
-
-#: largest transform one K2 launch takes (the four-step NTT splits
-#: longer ones); 64 points keep a block's tile and twiddles in 48 KB of
-#: shared memory at 16 limbs
-M_MAX = 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -235,14 +230,16 @@ def mont_pow(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K2: batched M-point DIF NTT, bit-reversed output, fused post-twiddle
+# K2: one four-step level in one launch
 # ---------------------------------------------------------------------------
 
 
 def small_ntt_plain(spec, x, stage_tw, post_tw=None):
-    """Plain torch K2. x (n_limbs, M, lanes); stage_tw (n_limbs, log2 M,
-    M/2) with entry j of stage s the twiddle of butterfly j (half-width
-    h = M >> (s+1), j < h); post_tw like x or None."""
+    """All log2(M) DIF stages of an M-point transform along axis 1 of x
+    (n_limbs, M, lanes), output in bit-reversed order along M, times
+    post_tw elementwise when given: the function of the JAX package's
+    `small_ntt`. stage_tw (n_limbs, log2 M, M/2) holds at entry j of stage
+    s the twiddle of butterfly j (half-width h = M >> (s+1), j < h)."""
     n, M, L = x.shape
     log_m = M.bit_length() - 1
     for s in range(log_m):
@@ -258,32 +255,146 @@ def small_ntt_plain(spec, x, stage_tw, post_tw=None):
     return x.to(limb.DTYPE)
 
 
-def small_ntt(spec: FieldSpec, x, stage_tw, post_tw=None):
-    """All log2(M) DIF stages of an M-point transform along axis 1 of
-    x (n_limbs, M, lanes), M a power of two <= M_MAX; output in bit-reversed
-    order along M, times post_tw elementwise when given."""
-    n, M, lanes = x.shape
-    if M & (M - 1) or not 2 <= M <= M_MAX:
-        raise ValueError(f"small_ntt: M={M} must be a power of two in [2, {M_MAX}]")
-    ops = (x, stage_tw) + ((post_tw,) if post_tw is not None else ())
-    if device_kind(*ops) == "cpu":
-        return small_ntt_plain(spec, x, stage_tw, post_tw)
-    _check_cuda(spec, *ops)
-    if stage_tw.shape != (n, M.bit_length() - 1, M // 2):
-        raise ValueError(f"small_ntt: stage_tw shape {tuple(stage_tw.shape)}")
-    if post_tw is not None and post_tw.shape != x.shape:
-        raise ValueError("small_ntt: post_tw must match x")
+def to_words(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
+    """(n_limbs, n) limbs -> (n, n_limbs / 2) int32 words (word w = limb 2w
+    | limb 2w+1 << 16, as bits): the word-packed layout K2 reads its tables
+    in, one element's words contiguous."""
+    t = t.reshape(spec.n_limbs, -1).to(torch.int64)
+    w = t[0::2] | (t[1::2] << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).t().contiguous()
+
+
+def from_words(spec: FieldSpec, w: torch.Tensor) -> torch.Tensor:
+    """Inverse of `to_words`: (n, n_limbs / 2) words -> (n_limbs, n) limbs."""
+    w = w.to(torch.int64).t() & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape(spec.n_limbs, -1).to(limb.DTYPE)
+
+
+#: largest level one K2 launch takes (`ntt._levels` splits a transform into
+#: balanced levels of at most M_MAX points)
+M_MAX = 64
+
+#: threads a K2 block runs (`kernel_probe k2` sweeps them, PERF.md), and
+#: radix-2 stages a pass of the level's DIF runs in registers (kLevelPass
+#: in ntt.cuh)
+LEVEL_THREADS = 256
+LEVEL_PASS = 2
+
+
+def stage_twiddles(R: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """`small_ntt_plain`'s stage table of an m-point DIF from the (n_limbs,
+    n) root table R of w_n^j: (n_limbs, log2 m, m/2), entry j of stage s
+    w_m^(2^s j)."""
+    log_m = m.bit_length() - 1
+    j = torch.arange(m // 2, dtype=torch.int64, device=R.device)
+    return torch.stack([R[:, ((n // m) << s) * j % n] for s in range(log_m)], dim=1)
+
+
+def _level_shape(x, log_m: int, nt: int):
+    """(N, B, M, S, c) of a level: x (n_limbs, N, B) read as (M, S, c)."""
+    N, B = x.shape[1], x.shape[2]
+    M = 1 << log_m
+    if N & (N - 1) or nt & (nt - 1) or not M <= nt <= N:
+        raise ValueError(f"four-step level: M={M}, nt={nt} and N={N} must be powers of two, M <= nt <= N")
+    return N, B, M, nt // M, N * B // nt
+
+
+def level_plain(spec: FieldSpec, x, roots, log_m: int, nt: int, pre=None, post=None):
+    """Plain torch K2: one level of the four-step transform of x (n_limbs,
+    N, B) read as (M, S, c) (M = 2^log_m, S = nt / M, c = N B / nt), into
+    (S, M, c) as (n_limbs, N, B): x times pre[i] (i = row, where given),
+    the M-point DIF of every (column, lane) (`small_ntt_plain`), the
+    bit-reversal gather into natural order, the level twiddle w_nt^(k1 j2)
+    (w_nt = w_N^(N / nt)), the transpose, and post[i] (or post[0] when it
+    holds one element). roots: (N, NW) words of w_N^j; pre, post: words."""
+    N, B, M, S, c = _level_shape(x, log_m, nt)
+    n = spec.n_limbs
+    R = from_words(spec, roots)
+    if pre is not None:
+        x = mont_mul_plain(spec, x, from_words(spec, pre).reshape(n, N, 1))
+    y = small_ntt_plain(spec, x.reshape(n, M, S * c), stage_twiddles(R, N, M))
+    rev = torch.as_tensor(bitrev(M), device=x.device)
+    k1, j2 = torch.arange(M, device=x.device), torch.arange(S, device=x.device)
+    tw = R[:, (N // nt) * k1[:, None] * j2[None, :]].reshape(n, M, S, 1)
+    y = mont_mul_plain(spec, y[:, rev].reshape(n, M, S, c), tw)
+    y = y.permute(0, 2, 1, 3).reshape(n, N, B)
+    if post is not None:
+        scale = from_words(spec, post)
+        y = mont_mul_plain(spec, y, scale.reshape(n, -1, 1))
+    return y.to(limb.DTYPE)
+
+
+def level_smem(spec: FieldSpec, log_m: int, tile: int) -> int:
+    """Shared memory bytes of a K2 block: the tile's M (tile + 1) words
+    and the M/2 stage twiddles, NW words each."""
+    M = 1 << log_m
+    return 4 * spec.n_limbs // 2 * (M * (tile + 1) + M // 2)
+
+
+#: shared memory a block can have on the H100 (227 KB)
+SMEM_MAX = 232448
+
+#: the largest level and tile the kernel takes (kLevelMaxLog and
+#: kLevelMaxTile in ntt_kernel.cu)
+LEVEL_MAX_LOG = 9
+LEVEL_MAX_TILE = 256
+
+
+def level_tile(spec: FieldSpec, log_m: int) -> int:
+    """Lanes a K2 block takes at a level of 2^log_m points: those that give
+    its largest pass (the level's stages split into passes of at most
+    LEVEL_PASS, balanced, as the kernel splits them) one item a thread of
+    LEVEL_THREADS, halved while the tile does not fit shared memory."""
+    passes = -(-log_m // LEVEL_PASS)
+    a = -(-log_m // passes)
+    tile = max(1, min(LEVEL_MAX_TILE, (LEVEL_THREADS << a) >> log_m))
+    while tile > 1 and level_smem(spec, log_m, tile) > SMEM_MAX:
+        tile //= 2
+    return tile
+
+
+def fourstep_level(spec: FieldSpec, x, roots, log_m: int, nt: int, pre=None, post=None):
+    """One level of the four-step transform: x (n_limbs, N, B) read as (M,
+    S, c) -> (S, M, c), the M-point DFT of each (column, lane) times w_nt^(k1
+    j2), times pre[i] before and post[i] (or post[0]) after where given
+    (`level_plain`). One K2 launch on the card, the plain version on the
+    CPU. roots (N, NW), pre (N, NW) and post (N, NW) or (1, NW): word-packed
+    tables (`to_words`) on x's device."""
+    N, B, M, S, c = _level_shape(x, log_m, nt)
+    tables = [t for t in (roots, pre, post) if t is not None]
+    if device_kind(x, *tables) == "cpu":
+        return level_plain(spec, x, roots, log_m, nt, pre, post)
+    _check_cuda(spec, x)
+    nw = spec.n_limbs // 2
+    for t, rows in ((roots, (N,)), (pre, (N,)), (post, (N, 1))):
+        if t is not None and (t.dtype != torch.int32 or not t.is_contiguous() or t.shape[1:] != (nw,)
+                              or t.shape[0] not in rows):
+            raise ValueError(f"four-step level: table {t.dtype} {tuple(t.shape)} for N={N}, {nw} words")
+    if log_m > LEVEL_MAX_LOG or N * B >= 1 << 31:
+        raise ValueError(f"four-step level: M={M} past 2^{LEVEL_MAX_LOG}, or N B = {N * B} past 32-bit indices")
+    tile = level_tile(spec, log_m)
     words, n0 = word_consts(spec)
     out = torch.empty_like(x)
-    code = build.lib().ozl_small_ntt(
-        out.data_ptr(), x.data_ptr(), stage_tw.data_ptr(),
-        post_tw.data_ptr() if post_tw is not None else None,
-        M, lanes, n, words.ctypes.data, n0, build.stream_ptr(x),
+    code = build.lib().ozl_fourstep_level(
+        out.data_ptr(), x.data_ptr(), roots.data_ptr(), pre.data_ptr() if pre is not None else None,
+        post.data_ptr() if post is not None else None, int(post is not None and post.shape[0] == 1),
+        N.bit_length() - 1, log_m, S, c, B, tile, spec.n_limbs, words.ctypes.data, n0,
+        build.stream_ptr(x),
     )
-    build.check(code, "K2 small_ntt")
-    K2.count(M * lanes)
+    build.check(code, "K2 fourstep_level")
+    K2.count(N * B, spec.n_limbs)
     return out
 
+
+def bitrev(m: int) -> np.ndarray:
+    """The bit-reversal permutation of range(m), m a power of two."""
+    log = m.bit_length() - 1
+    idx = np.arange(m, dtype=np.int64)
+    r = np.zeros(m, dtype=np.int64)
+    for _ in range(log):
+        r = (r << 1) | (idx & 1)
+        idx >>= 1
+    return r
 
 
 # ---------------------------------------------------------------------------

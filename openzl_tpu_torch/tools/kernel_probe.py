@@ -1,8 +1,8 @@
-"""Measurements behind K3's, K4's, K5's and K9's design choices, on one GPU.
+"""Measurements behind K2's, K3's, K4's, K5's, K7's, K8's and K9's design choices, on one GPU.
 
     python3 -m openzl_tpu_torch.tools.kernel_probe [part ...]
 
-Parts (all by default): microbench, k5, k9, k3, scan, k7, k8. Prints, on
+Parts (all by default): microbench, k5, k9, k3, scan, k7, k8, k2. Prints, on
 the card it runs on:
   * `field_microbench.cu` (built here with nvcc): latency and throughput of
     the F1 and F1c field operations and of one G1 mixed add, and K5's
@@ -38,7 +38,16 @@ the card it runs on:
   * K8's one-launch transform (BN254 Fr) at 2^4 to 2^12 points, batch 1,
     3 and 16, split over clusters of 1, 2, 4 and 8 blocks (each set in
     turn as `ntt_kernel.CLUSTER`'s entry), queued; the four-step route and
-    the stage-a-launch route at 2^10 and 2^12 beside it.
+    the stage-a-launch route at 2^10 and 2^12 beside it;
+  * K2's four-step level, queued, on F1c (BN254 Fr) and on F1 (a 16-limb
+    prime past F1c's bound, at the same shapes): each level of the 2^17
+    plan at batch 1 and 3 by threads a block (`ntt_kernel.LEVEL_THREADS`,
+    which sets the lanes a block), each held against the shipped setting's
+    output (and that against the plain version); a first level
+    of 2^17 points, batch 3, by M = 2 to 512; and the whole 2^17 (batch 1
+    and 3) and 2^20 transforms by `ntt_kernel.M_MAX` (64, 128, 512: 2^17
+    splits into [6, 6, 5] under the first two and [9, 8] under 512, 2^20
+    into [5, 5, 5, 5], [7, 7, 6] and [7, 7, 6]), the evidence for M_MAX.
 Builds go to `build/kernel_probe/` beside the kernel library. Exits non-zero
 without a card.
 """
@@ -75,7 +84,7 @@ FOLD_BOUNDS = [(128, 4, 2), (128, 3, 3), (64, 8, 4), (64, 6, 4), (32, 16, 8), (3
 EC_BUILDS = [(2, 1, "F1c"), (3, 2, "F1c"), (4, 2, "F1c"), (2, 1, "F1")]
 #: bounds of the lifted scan's narrow levels swept (`ec_kernel.SCAN_NARROW`)
 SCAN_NARROWS = [0, 4096, 16384, 32768]
-PARTS = ("microbench", "k5", "k9", "k3", "scan", "k7", "k8")
+PARTS = ("microbench", "k5", "k9", "k3", "scan", "k7", "k8", "k2")
 DIRECT_SRC = """template <class T>
 struct DirectRead {
   static constexpr int PW = 2 * (int)(sizeof(T) / sizeof(uint32_t));
@@ -564,6 +573,87 @@ def k8_sweep(dev, rng) -> None:
                 f"queued")
 
 
+def _k2_input(log_n: int, batch: int, dev) -> torch.Tensor:
+    """(16, 2^log_n, batch) canonical random BN254 Fr limbs."""
+    gen = torch.Generator().manual_seed(log_n * 10 + batch)
+    x = torch.randint(0, 1 << 16, (16, 1 << log_n, batch), generator=gen, dtype=torch.int32)
+    x[15] %= 0x3000
+    return x.to(dev)
+
+
+#: a 16-limb prime k 2^32 + 1 past F1c's bound (top word 0xFFFFFFFF): K2
+#: runs it on F1, at BN254 Fr's shapes
+F1_PRIME = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFD500000001
+
+
+def _k2_roots(spec, log_n: int, dev):
+    """Word-packed roots (2^log_n, NW) of w^j: BN254 Fr's plan table, or for
+    another prime k 2^32 + 1 the powers of an element of order 2^log_n."""
+    from ..ops import ntt, ntt_kernel
+
+    if spec is BN254_FR:
+        return ntt._fourstep_plan(spec, log_n, False, tuple(ntt._levels(log_n)), dev)[1]
+    p = spec.modulus
+    w = next(w for w in (pow(g, (p - 1) >> 32, p) for g in range(2, 64)) if pow(w, 1 << 31, p) != 1)
+    return ntt_kernel.to_words(spec, limb.geom_series_mont(spec, 1, pow(w, 1 << (32 - log_n), p), 1 << log_n, dev))
+
+
+def k2_sweep(dev) -> None:
+    """K2's level by tile lanes on F1c (BN254 Fr) and F1 (a prime past
+    F1c's bound), by M, and the whole transform by M_MAX (queued)."""
+    from ..fields.spec import FieldSpec
+    from ..ops import ntt, ntt_kernel
+
+    shipped = (ntt_kernel.LEVEL_THREADS, ntt_kernel.M_MAX)
+    fields = {"F1c": BN254_FR, "F1": FieldSpec("top_ffffffff", F1_PRIME)}
+    try:
+        for field, spec in fields.items():
+            roots = _k2_roots(spec, 17, dev)
+            shape = ntt._fourstep_plan(BN254_FR, 17, False, tuple(ntt._levels(17)), dev)[0]
+            for batch in (1, 3):
+                x = _k2_input(17, batch, dev)
+                for lm, nt in shape:
+                    ntt_kernel.LEVEL_THREADS = shipped[0]
+                    want = ntt_kernel.fourstep_level(spec, x, roots, lm, nt)
+                    if not torch.equal(want, ntt_kernel.level_plain(spec, x, roots, lm, nt)):
+                        raise RuntimeError(f"K2 on {field} at M=2^{lm}, nt={nt}, batch {batch} differs from its "
+                                           f"plain version")
+                    row = []
+                    for threads in (64, 128, 256):
+                        ntt_kernel.LEVEL_THREADS = threads
+                        tile = ntt_kernel.level_tile(spec, lm)
+                        f = lambda: ntt_kernel.fourstep_level(spec, x, roots, lm, nt)  # noqa: E731
+                        if not torch.equal(f(), want):
+                            raise RuntimeError(f"K2 on {field} with {tile} lanes a block differs")
+                        row.append(f"{tile} lanes {_queued_ms(f, 20) * 1e3:.1f}")
+                    log(f"[k2] {field} 2^17 batch {batch}, level M=2^{lm} nt={nt}, us a launch queued by lanes a "
+                        f"block (64, 128, 256 threads): {'; '.join(row)}; shipped {shipped[0]} threads")
+            ntt_kernel.LEVEL_THREADS = shipped[0]
+            x = _k2_input(17, 3, dev)
+            row = []
+            for lm in range(1, 10):
+                f = lambda: ntt_kernel.fourstep_level(spec, x, roots, lm, 1 << 17)  # noqa: E731
+                us = _queued_ms(f, 20) * 1e3
+                row.append(f"M=2^{lm} {us:.1f} us ({us * 1e3 / (3 << 17):.3f} ns an element)")
+            log(f"[k2] {field} first level of 2^17, batch 3, by M (shipped threads): {'; '.join(row)}")
+        spec = BN254_FR
+        for log_n, batch in ((17, 1), (17, 3), (20, 1)):
+            x = _k2_input(log_n, batch, dev)
+            row, want = [], None
+            for m_max in (64, 128, 512):
+                ntt_kernel.M_MAX = m_max
+                f = lambda: ntt.ntt(spec, x)  # noqa: E731
+                got = f()
+                want = got if want is None else want
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"the 2^{log_n} transform under M_MAX={m_max} differs")
+                row.append(f"M_MAX={m_max} {ntt._levels(log_n)} {_queued_ms(f, 10) * 1e3:.1f}")
+            ntt_kernel.M_MAX = shipped[1]
+            log(f"[k2] 2^{log_n} batch {batch} ntt, us queued: {'; '.join(row)}; shipped M_MAX={shipped[1]}")
+    finally:
+        ntt_kernel.LEVEL_THREADS, ntt_kernel.M_MAX = shipped
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe needs a GPU")
@@ -593,6 +683,8 @@ def main() -> None:
         k7_sweep(dev)
     if "k8" in parts:
         k8_sweep(dev, rng)
+    if "k2" in parts:
+        k2_sweep(dev)
 
 
 if __name__ == "__main__":

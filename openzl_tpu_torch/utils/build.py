@@ -161,8 +161,9 @@ _SIGNATURES = {
     "ozl_mont_mul": [_VP, _VP, _VP, _I64, _I64, _I64, _I, _VP, _U32, _VP],
     # (out, a, N, exponent words, bits, n_limbs, p, n0, one, stream)
     "ozl_mont_pow": [_VP, _VP, _I64, _VP, _I, _I, _VP, _U32, _VP, _VP],
-    # (out, x, stage_tw, post_tw|0, M, lanes, n_limbs, p, n0, stream)
-    "ozl_small_ntt": [_VP, _VP, _VP, _VP, _I, _I64, _I, _VP, _U32, _VP],
+    # (out, x, roots, pre|0, post|0, post_one, log_n, log_m, S, c, B, tile,
+    #  n_limbs, p, n0, stream)
+    "ozl_fourstep_level": [_VP] * 5 + [_I, _I, _I, _I64, _I64, _I64, _I, _I, _VP, _U32, _VP],
     # (u, t, in_ls, tw, tw_ls, mask, lo, hi, out_ls, out_ks, H, B, n_limbs,
     #  p, n0, stream)
     "ozl_butterfly": [_VP, _VP, _I64, _VP, _I64, _I64, _VP, _VP, _I64, _I64, _I64, _I64, _I, _VP, _U32, _VP],

@@ -18,7 +18,12 @@ four-step threshold reaches the library as one K8 transform launch and
 nothing else (`_TransformLib`, which computes the plain transform on the
 buffers it is handed), with the wrapper's cluster size; a 24-limb field
 and N = 2^13 are refused before it; fields of other limb counts run a
-K8 stage launch a stage instead. Inputs come from seeded
+K8 stage launch a stage instead. From 2^13 (or with the threshold
+lowered) each of the four transforms reaches the library as one K2 level
+launch a level and nothing else (`_LevelLib`, which computes the plain
+level), with the level shapes, the coset scales in the first level's load
+and the inverse's scales in the last level's store, and a new plan when
+`ntt_kernel.M_MAX` changes the level split. Inputs come from seeded
 `random.Random` / numpy; every comparison is exact (tolerance 0)."""
 
 import collections
@@ -452,3 +457,84 @@ def test_native_converter_leaves_other_radixes_to_python(monkeypatch):
     limb.pack_mont(BN254_FR, vals)
     assert Lib.calls == 1
 
+
+
+class _LevelLib:
+    """Stands in for the kernel library with K2's level entry alone:
+    records (log_m, S, c, B, pre given, post given, post_one) and writes the
+    plain level of the buffers into the output. Any other entry point is
+    missing, so a K1 or K8 launch fails the caller."""
+
+    def __init__(self, spec):
+        self.spec, self.calls = spec, []
+
+    def ozl_fourstep_level(self, out, x, roots, pre, post, post_one, log_n, log_m, S, c, B, tile, n_limbs, p, n0,
+                           stream):
+        from openzl_tpu_torch.ops import ntt_kernel
+
+        N, nw = 1 << log_n, n_limbs // 2
+        assert tile == ntt_kernel.level_tile(self.spec, log_m)
+        self.calls.append((log_m, S, c, B, pre is not None, post is not None, post_one))
+        table = lambda ptr, rows: torch.from_numpy(_view(ptr, (rows, nw)).copy())  # noqa: E731
+        got = ntt_kernel.level_plain(
+            self.spec, torch.from_numpy(_view(x, (n_limbs, N, B)).copy()), table(roots, N), log_m, (1 << log_m) * S,
+            table(pre, N) if pre is not None else None,
+            table(post, 1 if post_one else N) if post is not None else None,
+        )
+        _view(out, (n_limbs, N, B))[...] = got.numpy()
+        return 0
+
+
+@pytest.mark.parametrize("log_n,batch,m_max,threshold", [(13, 1, 64, None), (10, 3, 8, 1), (9, 1, 64, 1)])
+def test_fourstep_route_is_one_k2_launch_a_level(log_n, batch, m_max, threshold, monkeypatch):
+    """`ntt`, `intt`, `coset_ntt` and `coset_intt` on the four-step route on
+    a (stand-in) card: one `ozl_fourstep_level` call a level of
+    `ntt._levels`, each level reading (M, S, c) with S c = the next
+    level's ..., g^i only in the first level's load of `coset_ntt`, 1/N
+    (one element) in the last level's store of `intt` and 1/N g^-i (a
+    table) in that of `coset_intt`; no other launch; results equal to the
+    plain route's. 2^13 takes the route by default ([5, 4, 4]); 2^10 with
+    M_MAX = 8 has four levels; a plan built under another M_MAX is not
+    reused (each split's plan is built before the stand-in, whose missing K1
+    entry would fail a plan built during the run)."""
+    from openzl_tpu_torch.ops import ntt, ntt_kernel
+
+    spec = BN254_FR
+    if threshold is not None:
+        monkeypatch.setattr(ntt, "_FOURSTEP_MIN", threshold)
+    monkeypatch.setattr(ntt_kernel, "M_MAX", m_max)
+    rng = random.Random(log_n)
+    N = 1 << log_n
+    vals = np.array([rng.randrange(spec.modulus) for _ in range(N * batch)], dtype=object).reshape(N, batch)
+    x = limb.tensor(limb.pack_mont(spec, vals if batch > 1 else vals[:, 0]))
+    fns = (ntt.ntt, ntt.intt, ntt.coset_ntt, ntt.coset_intt)
+    want = {fn: fn(spec, x) for fn in fns}  # the plain route; builds the plans and coset tables
+    levels = ntt._levels(log_n)
+    other = 64 if m_max == 8 else 8
+    monkeypatch.setattr(ntt_kernel, "M_MAX", other)
+    ntt.ntt(spec, x)  # the plan of the other split, built by K1 products before the stand-in
+    monkeypatch.setattr(ntt_kernel, "M_MAX", m_max)
+    fake = _LevelLib(spec)
+    monkeypatch.setattr(ntt_kernel, "device_kind", lambda *t: "cuda")
+    monkeypatch.setattr(build, "lib", lambda: fake)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: None)
+    monkeypatch.setattr(ntt_kernel.K2, "launches", 0)
+    monkeypatch.setattr(ntt_kernel.K2, "by_width", {})
+    monkeypatch.setattr(ntt_kernel.K2, "by_limbs", {})
+    for fn in fns:
+        fake.calls.clear()
+        assert torch.equal(fn(spec, x), want[fn]), fn.__name__
+        nt, c, shapes = N, batch, []
+        for k, lm in enumerate(levels):
+            last = k == len(levels) - 1
+            inverse = fn in (ntt.intt, ntt.coset_intt)
+            post = last and inverse
+            shapes.append((lm, nt >> lm, c, batch, k == 0 and fn is ntt.coset_ntt, post, int(post and fn is ntt.intt)))
+            c <<= lm
+            nt >>= lm
+        assert fake.calls == shapes, fn.__name__
+    assert ntt_kernel.K2.launches == 4 * len(levels) and ntt_kernel.K2.by_limbs == {16: 4 * len(levels)}
+    monkeypatch.setattr(ntt_kernel, "M_MAX", other)
+    fake.calls.clear()
+    assert torch.equal(ntt.ntt(spec, x), want[ntt.ntt])
+    assert [call[0] for call in fake.calls] == ntt._levels(log_n) != levels

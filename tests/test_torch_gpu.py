@@ -84,12 +84,6 @@ def test_k1_mont_pow_matches_plain(cuda, spec, n):
         assert torch.equal(ntt_kernel.mont_pow(spec, a, e), ntt_kernel.mont_pow_plain(spec, a, e)), e
 
 
-def test_k2_kernel_and_ntt_match_cpu(cuda):
-    spec = BN254_FR
-    x = _field(spec, 1 << 12, 3)
-    assert torch.equal(ntt.coset_ntt(spec, x.to(cuda)).cpu(), ntt.coset_ntt(spec, x))
-
-
 @pytest.mark.parametrize("curve", EC_CURVES, ids=lambda c: c.name)
 def test_k3_k4_kernels_match_plain(cuda, curve):
     pts, qts = _points(curve, 12, 5)
@@ -235,6 +229,49 @@ def test_small_transforms_of_other_fields_run_k8_stages(cuda, spec):
             got = fn(spec, xc)
             assert (ntt_kernel.K8.launches - before[0], ntt_kernel.K1.launches - before[1]) == (log_n, scales)
             assert torch.equal(got.cpu(), fn(spec, x)), (log_n, fn.__name__)
+
+
+#: the four transforms of `ops/ntt.py`
+TRANSFORMS = (ntt.ntt, ntt.intt, ntt.coset_ntt, ntt.coset_intt)
+
+
+def _fourstep_matches_cpu(spec, x, cuda):
+    """Each of the four transforms of x (a CPU tensor, N >= 2^13) on the
+    card: one K2 launch a level of `ntt._levels(N)`, no K1 and no K8 launch
+    (the plans built first), and the CPU route's result."""
+    log_n = x.shape[1].bit_length() - 1
+    xc = x.to(cuda)
+    for fn in TRANSFORMS:
+        want = fn(spec, x)
+        fn(spec, xc)  # the plans and coset tables, built once by K1 products
+        before = [k.launches for k in (ntt_kernel.K2, ntt_kernel.K1, ntt_kernel.K8)]
+        got = fn(spec, xc)
+        after = [k.launches for k in (ntt_kernel.K2, ntt_kernel.K1, ntt_kernel.K8)]
+        assert [a - b for a, b in zip(after, before)] == [len(ntt._levels(log_n)), 0, 0], (log_n, fn.__name__)
+        assert torch.equal(got.cpu(), want), (log_n, fn.__name__)
+
+
+@pytest.mark.parametrize("log_n", [13, 14])
+@pytest.mark.parametrize("spec", [BN254_FR, *F1_PRIMES, *STAGE_FIELDS], ids=lambda s: s.name)
+def test_fourstep_route_matches_cpu(cuda, spec, log_n, monkeypatch):
+    """`ntt`, `intt`, `coset_ntt` and `coset_intt` at 2^13 and 2^14, batch 1
+    and 2, on the four-step route: K2 on F1c (BN254 Fr, BLS12-377 Fq), on
+    F1 (the two 16-limb primes past F1c's bound, with generator 3) and at
+    one word (BabyBear), each a K2 launch a level, equal to the CPU route."""
+    monkeypatch.setitem(ntt.GENERATORS, spec.name, ntt.GENERATORS.get(spec.name, 3))
+    for batch in (1, 2):
+        x = limb.to_mont(spec, _field(spec, batch << log_n, 100 + log_n))
+        x = x.reshape(spec.n_limbs, 1 << log_n, batch)
+        _fourstep_matches_cpu(spec, x[:, :, 0].contiguous() if batch == 1 else x.contiguous(), cuda)
+
+
+def test_prover_shape_fourstep_is_three_k2_launches(cuda):
+    """The Groth16 prover's transforms, 2^17 points over BN254 Fr at batch 3:
+    each of the four is three K2 launches ([6, 6, 5]) and nothing else, and
+    equals the CPU route."""
+    assert ntt._levels(17) == [6, 6, 5]
+    x = limb.to_mont(BN254_FR, _field(BN254_FR, 3 << 17, 117)).reshape(16, 1 << 17, 3)
+    _fourstep_matches_cpu(BN254_FR, x, cuda)
 
 
 def test_small_transform_is_one_k8_launch(cuda):

@@ -1,13 +1,19 @@
 """Kernels K2's and K8's plain versions and the port's NTTs against the JAX
 package.
 
-K2 (plain) is held against `openzl_tpu.ops.ntt_kernel.small_ntt` in Pallas
-interpret mode on BabyBear, K8 (plain) against `ntt_kernel.butterfly` in
-interpret mode on BN254 Fr, as tests/test_ntt_kernel.py runs them; `ntt`,
-`intt`, `coset_ntt` and `coset_intt` against `openzl_tpu.ops.ntt` on BN254
-Fr at 2^3 to 2^10 and on a batch axis, through both routes (per-stage
-below 2^13, and the four-step route, reached by lowering the threshold or
-through `fourstep_transform`). K8 stages and the per-stage transforms are also
+K2's M-point DIF (`small_ntt_plain`, from which its plain level is built)
+is held against `openzl_tpu.ops.ntt_kernel.small_ntt` in Pallas interpret
+mode on BabyBear, K8 (plain) against `ntt_kernel.butterfly` in interpret
+mode on BN254 Fr, as tests/test_ntt_kernel.py runs them; `ntt`, `intt`,
+`coset_ntt` and `coset_intt` against `openzl_tpu.ops.ntt` on BN254 Fr at
+2^3 to 2^10 and on a batch axis of 3, through every route (per-stage below
+2^13, and the four-step route, reached by lowering the threshold or
+through `fourstep_transform`, in two levels and, with `ntt_kernel.M_MAX`
+lowered to 8, in three or four; the inverses at batch 3 through the JAX
+package's forward results). K2's plain level is held against sums over
+Python ints, one level with and without its scales and the four-step
+route in three levels over BabyBear and BLS12-381 Fr, with
+no JAX compile. K8 stages and the per-stage transforms are also
 held against sums over Python ints (no JAX compile) on BN254 Fr,
 BLS12-381 Fr and BabyBear. K8's one-launch transform's plain version
 (`transform_plain`) is held against the JAX package's `_ntt_core` at 2^1
@@ -79,7 +85,7 @@ def test_k2_plain_matches_pallas_interpret(m, lanes, post):
     )
     # the port's table keeps entry j < h of each stage: (n, log m, m / 2)
     port_tw = limb.tensor(ref_tw[:, :, : m // 2])
-    got = ntt_kernel.small_ntt(
+    got = ntt_kernel.small_ntt_plain(
         spec, limb.tensor(x), port_tw, None if post_tw is None else limb.tensor(post_tw)
     )
     assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(want))
@@ -92,21 +98,31 @@ def test_k2_stage_table_matches_reference_layout():
     log_n, m = 10, 32
     R = _roots(spec, log_n)
     ref_tw = ref_ntt._stage_twiddles(spec, R, 1 << log_n, m)
-    port_tw = ntt._stage_twiddles(limb.tensor(R), 1 << log_n, m).numpy()
+    port_tw = ntt_kernel.stage_twiddles(limb.tensor(R), 1 << log_n, m).numpy()
     for s in range(m.bit_length() - 1):
         h = m >> (s + 1)
         assert np.array_equal(port_tw[:, s, :h], ref_tw[:, s, :h])
 
 
-#: `_FOURSTEP_MIN` values that send a transform below 2^13 to each route
-ROUTES = {"stage": ntt._FOURSTEP_MIN, "fourstep": 1}
+#: (`_FOURSTEP_MIN`, `ntt_kernel.M_MAX`) that send a transform below 2^13
+#: to each route: the per-stage route, the four-step route in levels of
+#: up to 64 points (two levels at 2^8-2^10), and in levels of up to 8
+#: points (three levels at 2^8 and 2^9, four at 2^10; the prover's 2^17
+#: has three)
+ROUTES = {"stage": (ntt._FOURSTEP_MIN, 64), "fourstep": (1, 64), "fourstep_deep": (1, 8)}
+
+
+def _route(monkeypatch, route):
+    threshold, m_max = ROUTES[route]
+    monkeypatch.setattr(ntt, "_FOURSTEP_MIN", threshold)
+    monkeypatch.setattr(ntt_kernel, "M_MAX", m_max)
 
 
 @pytest.mark.parametrize("log_n", [8, 9, 10])
 def test_transforms_match_reference(log_n, monkeypatch):
-    """All four transforms through both routes. At these sizes the
-    four-step route has two levels (level twiddles, transposes and an
-    inner node), as at the prover's 2^17 (three levels)."""
+    """All four transforms through every route. At these sizes the
+    four-step route has two levels, and three or four with M_MAX at 8, as
+    at the prover's 2^17 (three levels)."""
     assert len(ntt._levels(log_n)) == 2
     spec = BN254_FR
     x = _rand_mont(spec, (1 << log_n,), log_n)
@@ -118,22 +134,26 @@ def test_transforms_match_reference(log_n, monkeypatch):
         (ntt.coset_intt, ref_ntt.coset_intt),
     ):
         want = np.asarray(ref_fn(spec, jx))
-        for route, threshold in ROUTES.items():
-            monkeypatch.setattr(ntt, "_FOURSTEP_MIN", threshold)
+        for route in ROUTES:
+            _route(monkeypatch, route)
+            assert len(ntt._levels(log_n)) == {"fourstep_deep": -(-log_n // 3)}.get(route, 2)
             got = port_fn(spec, tx)
             assert np.array_equal(got.numpy().astype(np.uint32), want), (port_fn.__name__, route)
 
 
 def test_transform_batch_axis_matches_reference(monkeypatch):
-    """A trailing batch axis of 3 through both routes (two four-step
-    levels, the inner node carrying n1 x 3 lanes)."""
+    """A trailing batch axis of 3 through every route (two and three
+    four-step levels, the later ones carrying n1 x 3 lanes); the inverse
+    through the JAX package's forward result (intt(ntt(x)) = x)."""
     spec = BN254_FR
     x = _rand_mont(spec, (256, 3), 11)
     want = np.asarray(ref_ntt.ntt(spec, jnp.asarray(x)))
-    for route, threshold in ROUTES.items():
-        monkeypatch.setattr(ntt, "_FOURSTEP_MIN", threshold)
+    for route in ROUTES:
+        _route(monkeypatch, route)
         got = ntt.ntt(spec, limb.tensor(x))
         assert np.array_equal(got.numpy().astype(np.uint32), want), route
+        back = ntt.intt(spec, limb.tensor(want.astype(np.int32)))
+        assert np.array_equal(back.numpy().astype(np.uint32), x), route
 
 
 def test_k8_plain_matches_pallas_interpret():
@@ -188,27 +208,38 @@ def test_routes_match_reference(route, log_n):
 @pytest.mark.parametrize("inverse", [False, True])
 def test_plan_tables_match_reference(inverse):
     """The root powers and coset scales, built on the tensor's device by
-    `limb.geom_series_mont`, equal the reference's host tables."""
+    `limb.geom_series_mont`, equal the reference's host tables; the
+    four-step route's word-packed scales are the same series, the
+    inverse's times 1/N."""
     spec, log_n = BN254_FR, 9
     cpu = torch.device("cpu")
     R = ntt._root_powers(spec, log_n, inverse, cpu)
     assert np.array_equal(R.numpy(), _roots(spec, log_n, inverse))
     scales = ntt._coset_scales(spec, 1 << log_n, inverse, cpu)
     assert np.array_equal(scales.numpy(), ref_ntt._coset_scales(spec, 1 << log_n, inverse))
+    if inverse:
+        n_inv = limb.tensor(limb.pack_mont(spec, pow(1 << log_n, -1, spec.modulus)))
+        scales = ntt_kernel.mont_mul_plain(spec, scales, n_inv.reshape(-1, 1)).to(limb.DTYPE)
+    words = ntt._coset_scales(spec, 1 << log_n, inverse, cpu, words=True)
+    assert torch.equal(words, ntt_kernel.to_words(spec, scales))
 
 
 def test_coset_transforms_batch_axis_match_reference(monkeypatch):
     """The batched coset transforms of the prover's h polynomial (u, v and w
-    stacked on a trailing axis of 3), through both routes."""
+    stacked on a trailing axis of 3), through every route; the coset
+    inverse also of the JAX package's forward result."""
     spec = BN254_FR
     x = _rand_mont(spec, (256, 3), 12)
     tx, jx = limb.tensor(x), jnp.asarray(x)
     for port_fn, ref_fn in ((ntt.coset_ntt, ref_ntt.coset_ntt), (ntt.coset_intt, ref_ntt.coset_intt)):
         want = np.asarray(ref_fn(spec, jx))
-        for route, threshold in ROUTES.items():
-            monkeypatch.setattr(ntt, "_FOURSTEP_MIN", threshold)
+        for route in ROUTES:
+            _route(monkeypatch, route)
             got = port_fn(spec, tx)
             assert np.array_equal(got.numpy().astype(np.uint32), want), (port_fn.__name__, route)
+            if port_fn is ntt.coset_ntt:
+                back = ntt.coset_intt(spec, limb.tensor(want.astype(np.int32)))
+                assert np.array_equal(back.numpy().astype(np.uint32), x), route
 
 
 @pytest.mark.parametrize("log_n", [1, 4, 13])
@@ -217,7 +248,8 @@ def test_round_trip_and_level_split(log_n):
     x = limb.tensor(_rand_mont(spec, (1 << log_n,), 100 + log_n))
     assert torch.equal(ntt.intt(spec, ntt.ntt(spec, x)), x)
     levels = ntt._levels(log_n)
-    assert sum(levels) == log_n and max(levels) <= 6 and max(levels) - min(levels) <= 1
+    cap = ntt_kernel.M_MAX.bit_length() - 1
+    assert sum(levels) == log_n and max(levels) <= cap and max(levels) - min(levels) <= 1
 
 
 INT_SPECS = {"bn254_fr": BN254_FR, "bls12_381_fr": BLS12_381_FR, "babybear": BABYBEAR}
@@ -353,3 +385,88 @@ def test_transform_plain_matches_naive_dft(name, log_n):
         got1 = _ints(spec, ntt_kernel.transform_plain(spec, limb.tensor(np.ascontiguousarray(x[:, :, 0])), table,
                                                        rev, n_inv, inverse))
         assert [int(v) for v in got1] == want[0], inverse
+
+
+@pytest.mark.parametrize("log_n,m_max", [(6, 4), (7, 8)])
+@pytest.mark.parametrize("name", ["babybear", "bls12_381_fr"])
+def test_fourstep_route_matches_naive_dft(name, log_n, m_max, monkeypatch):
+    """The four-step route in three levels ([2, 2, 2] with M_MAX = 4,
+    [3, 2, 2] with 8, as the prover's 2^17 has three), all four transforms
+    on a batch of 2, against O(N^2) sums over Python ints with the
+    reference's root w and coset generator g."""
+    spec = INT_SPECS[name]
+    monkeypatch.setattr(ntt_kernel, "M_MAX", m_max)
+    assert len(ntt._levels(log_n)) == 3
+    p, N = spec.modulus, 1 << log_n
+    w = ref_ntt.group_gen(spec, log_n)
+    g, n_inv = ref_ntt.GENERATORS[spec.name], pow(N, -1, p)
+    x = _rand_mont(spec, (N, 2), 400 + log_n)
+    cols = [[int(v) for v in col] for col in _ints(spec, x).T]
+    want = {
+        ntt.ntt: [_dft(p, w, col) for col in cols],
+        ntt.intt: [_dft(p, pow(w, -1, p), col, n_inv) for col in cols],
+        ntt.coset_ntt: [_dft(p, w, col, shift=g) for col in cols],
+        ntt.coset_intt: [[v * pow(g, -j, p) % p for j, v in enumerate(_dft(p, pow(w, -1, p), col, n_inv))]
+                         for col in cols],
+    }
+    monkeypatch.setattr(ntt, "_FOURSTEP_MIN", 1)
+    for fn, values in want.items():
+        got = _ints(spec, fn(spec, limb.tensor(x)))
+        assert [[int(v) for v in col] for col in got.T] == values, fn.__name__
+
+
+@pytest.mark.parametrize("log_n,log_m,log_nt,batch", [(5, 2, 5, 1), (5, 3, 4, 3), (6, 2, 3, 2), (4, 4, 4, 1)])
+@pytest.mark.parametrize("name", ["bn254_fr", "babybear"])
+def test_level_plain_matches_int_oracle(name, log_n, log_m, log_nt, batch):
+    """K2's plain version, one level: x (N, B) read as (M, S, c) gives (S, M,
+    c) with out[j2, k1, b] = w_nt^(k1 j2) sum_j1 x[j1, j2, b] w_M^(j1 k1)
+    (w_nt = w_N^(N / nt), w_M = w_nt^S), times pre[i] before and post[i]
+    after (i the element's row), and with post a single element."""
+    spec = INT_SPECS[name]
+    p, N, M, nt = spec.modulus, 1 << log_n, 1 << log_m, 1 << log_nt
+    S, c = nt // M, N * batch // nt
+    w = ref_ntt.group_gen(spec, log_n)
+    roots = ntt_kernel.to_words(spec, limb.tensor(_roots(spec, log_n)))
+    x = _rand_mont(spec, (N, batch), 500 + log_n + log_m)
+    pre, post = _rand_mont(spec, (N,), 7), _rand_mont(spec, (N,), 8)
+    xs, pres, posts = (_ints(spec, v) for v in (x, pre, post))
+    flat = [int(v) for v in xs.reshape(-1)]  # element (j1, j2, b) at (j1 S + j2) c + b
+    w_nt = pow(w, N // nt, p)
+    w_m = pow(w_nt, S, p)
+    for use_pre, use_post in ((False, False), (True, False), (False, True), (False, "one")):
+        got = ntt_kernel.level_plain(
+            spec, limb.tensor(x), roots, log_m, nt,
+            ntt_kernel.to_words(spec, limb.tensor(pre)) if use_pre else None,
+            None if not use_post else ntt_kernel.to_words(spec, limb.tensor(post[:, :1] if use_post == "one" else post)),
+        )
+        got = [int(v) for v in _ints(spec, got).reshape(-1)]
+        for j2 in range(S):
+            for k1 in range(M):
+                for b in range(c):
+                    acc = 0
+                    for j1 in range(M):
+                        i = (j1 * S + j2) * c + b
+                        v = flat[i] * (int(pres[i // batch]) if use_pre else 1)
+                        acc += v * pow(w_m, j1 * k1, p)
+                    o = (j2 * M + k1) * c + b
+                    want = acc * pow(w_nt, k1 * j2, p) % p
+                    if use_post:
+                        want = want * int(posts[0 if use_post == "one" else o // batch]) % p
+                    assert got[o] == want, (use_pre, use_post, j2, k1, b)
+
+
+def test_word_tables_round_trip():
+    """`to_words` packs limbs 2w and 2w + 1 into word w (as int32 bits) with
+    an element's words contiguous, and `from_words` undoes it, at 2, 16
+    and 24 limbs, p - 1 among the values."""
+    for spec in (BABYBEAR, BN254_FR, BLS12_381_FR):
+        vals = _rand_mont(spec, (5,), 9)
+        vals[:, 0] = ref_limb.pack_mont(spec, spec.modulus - 1)
+        t = limb.tensor(vals)
+        w = ntt_kernel.to_words(spec, t)
+        assert w.shape == (5, spec.n_limbs // 2) and w.dtype == torch.int32
+        ints = _ints(spec, vals)
+        for i in range(5):
+            m = int(ints[i]) * spec.R % spec.modulus
+            assert [int(v) & 0xFFFFFFFF for v in w[i]] == [(m >> (32 * k)) & 0xFFFFFFFF for k in range(spec.n_limbs // 2)]
+        assert torch.equal(ntt_kernel.from_words(spec, w), t)
