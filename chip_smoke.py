@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (`openzl_tpu_torch`) on one GPU.
 
-Drives the port's three paths through the entry points a user calls, the
-Groth16 prover, Poseidon hashing with the Merkle tree, and KZG commitments
-with dense polynomials, and checks every hand-written kernel on the way.
+Drives the port's four paths through the entry points a user calls, the
+Groth16 prover, Poseidon hashing with the Merkle tree, KZG commitments
+with dense polynomials, and the gadget layer (batched Schnorr verification
+and a Groth16 proof of Schnorr verifications), and checks every
+hand-written kernel on the way.
 Phases:
 
   1. device   the card's name and power limit; fails without CUDA
@@ -121,6 +123,29 @@ Phases:
               `KZG(BLS12_381, backend="device")` setup, commit, opens,
               verify, batch_verify, params bytes, a product and a division;
               K9 must launch at 24 limbs
+  8. gadgets  the gadget layer (`eclair.TorchCompiler`, the Edwards EC
+              gadget, Schnorr): (a) `TorchCompiler` ops (add, sub, neg,
+              mul, square, inv, pow5, select, is_eq, is_zero, to_bits_le /
+              from_bits_le) at 2^16 elements over BN254 Fr and BLS12-381 Fr
+              against `NativeCompiler` on 256 sampled elements (0 and
+              p - 1 among them), bit-exact, with each op's wall ms (a
+              second call); (b)
+              1024 Schnorr verifications on Baby Jubjub in one batch
+              (`schnorr_batch_mask`, the gadgets `verify_gadget` calls with
+              its two masks ANDed), tiled from 64 signatures made on the
+              host, one in eight forged (a wrong message or the scalar +
+              1): the mask must equal `EdSchnorr.verify` on every input,
+              with the wall ms and verifications/s, and K1 and `mont_pow`
+              must launch (counters zeroed before, read after); (c) a
+              BN254 Groth16 proof of `--signatures` (16) verification
+              circuits in one R1CS (about 105,000 constraints, domain
+              2^17): synthesis ms, one compile, two prove requests, each
+              verified, a public message + 1 rejected, and every Groth16
+              kernel (K1, `mont_pow`, K2, K3, K4, K9, K3s) must launch;
+              (d) `Groth16()` with no arguments (BLS12-381) on one Jubjub
+              signature: prove, verify, reject a fuzzed message; K3, K4,
+              K9 and K3s must launch at 24 limbs. Prints the phase's wall
+              time and its record as one JSON line
 
 After the phases, K6's time and bound share beside K5's at each width
 (phases 6 and 6b). Prints a JSON line of per-kernel results (times,
@@ -132,7 +157,7 @@ the rows of K1 and `mont_pow` every run with its device time), then,
 as the last line, {"ok": true, "device": {...}}. Any failure exits non-zero
 with no result. Imports only the port (`openzl_tpu_torch`), never JAX.
 
-Usage: python3 chip_smoke.py [--chain 512] [--proofs 3]
+Usage: python3 chip_smoke.py [--chain 512] [--proofs 3] [--signatures 16]
 
 `python3 chip_smoke.py --transforms-of DIR` runs only phase 7's whole
 four-step transforms of the port in checkout DIR (`transforms_of`): the
@@ -1598,6 +1623,262 @@ def phase_kzg(all_kernels, b2_fold, device="cuda", log_d: int = 16, log_big: int
     return results, launches
 
 
+# ---------------------------------------------------------------------------
+# 8. gadgets
+# ---------------------------------------------------------------------------
+
+
+def _gadget_ops(spec, device, log_n: int, sample: int, rng):
+    """Part (a): `TorchCompiler` ops at 2^log_n elements of `spec`, each
+    held bit-exact against the port's `NativeCompiler` on `sample`
+    elements (0 and p - 1 among them); returns {op: wall ms}."""
+    import torch
+
+    from openzl_tpu_torch.eclair import NativeCompiler, TorchCompiler
+    from openzl_tpu_torch.fields import limb
+
+    n, p = 1 << log_n, spec.modulus
+    a = [0, p - 1] + [rng.randrange(p) for _ in range(n - 2)]
+    b = [x if i % 4 == 0 else rng.randrange(p) for i, x in enumerate(a)]
+    bit = [bool(rng.getrandbits(1)) for _ in range(n)]
+    idx = [0, 1] + rng.sample(range(2, n), sample - 2)
+    com, nat = TorchCompiler(spec, (n,), device), NativeCompiler(spec)
+    ta, tb = (limb.tensor(limb.pack_mont(spec, v), device) for v in (a, b))
+    tbit = torch.tensor(bit, device=device)
+    ops = {
+        "add": (lambda c, x, y, z: c.add(x, y)),
+        "sub": (lambda c, x, y, z: c.sub(x, y)),
+        "neg": (lambda c, x, y, z: c.neg(x)),
+        "mul": (lambda c, x, y, z: c.mul(x, y)),
+        "square": (lambda c, x, y, z: c.square(x)),
+        "inv": (lambda c, x, y, z: c.inv(x)),
+        "pow5": (lambda c, x, y, z: c.pow5(x)),
+        "select": (lambda c, x, y, z: c.select(z, x, y)),
+        "is_eq": (lambda c, x, y, z: c.is_eq(x, y)),
+        "is_zero": (lambda c, x, y, z: c.is_zero(x)),
+        "to_bits_le": (lambda c, x, y, z: c.to_bits_le(x, spec.bits)),
+    }
+    def timed(f, *args):
+        """(result, wall ms of a second call: the first pays one-time costs)"""
+        f(*args)
+        return _wall(lambda: f(*args), torch.device(device))
+
+    times = {}
+    for name, fn in ops.items():
+        out, times[name] = timed(fn, com, ta, tb, tbit)
+        if name == "to_bits_le":
+            back, times["from_bits_le"] = timed(com.from_bits_le, out)
+            if not torch.equal(back, ta):
+                fail(f"[gadgets] {spec.name}: from_bits_le(to_bits_le(a)) != a")
+            got = torch.stack(out)[:, idx].T.tolist()
+            want = [nat.to_bits_le(a[i], spec.bits) for i in idx]
+        elif out.dtype == torch.bool:
+            got = out[idx].tolist()
+            want = [fn(nat, a[i], b[i], bit[i]) for i in idx]
+        else:
+            got = [int(v) for v in limb.unpack_mont(spec, out[:, idx])]
+            want = [0 if name == "inv" and a[i] == 0 else fn(nat, a[i], b[i], bit[i]) for i in idx]
+        if got != want:
+            bad = next(k for k in range(len(idx)) if got[k] != want[k])
+            fail(f"[gadgets] {spec.name} {name} at element {idx[bad]} differs from NativeCompiler")
+    log(f"[gadgets] (a) {spec.name}: TorchCompiler ops at 2^{log_n} elements equal NativeCompiler on "
+        f"{len(idx)} sampled elements (0 and p - 1 among them); wall ms of a second call: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+    return times
+
+
+def schnorr_batch_mask(com, spec, vk, msg, s, R):
+    """The gadgets `verify_gadget` calls (crypto/signature/schnorr.py:64),
+    composed so that its two `assert_eq` masks come back ANDed: one bool
+    a verification. vk and R are `PointVar`s, msg and s field tensors."""
+    from openzl_tpu_torch.crypto import ec_gadget as ecg
+    from openzl_tpu_torch.crypto.signature import schnorr
+
+    c = schnorr.challenge_gadget(com, spec, vk, R, msg)
+    c_bits = com.to_bits_le(c, spec.base.bits)
+    s_bits = com.to_bits_le(s, spec.scalar_bits)
+    lhs = ecg.fixed_base_scalar_mul(com, schnorr._gen_table(spec), s_bits)
+    rhs = ecg.add_points(com, spec, R, ecg.scalar_mul(com, spec, c_bits, vk))
+    return com.and_(com.assert_eq(lhs.x, rhs.x), com.assert_eq(lhs.y, rhs.y))
+
+
+def _signatures(spec, count: int, seed: int):
+    """`count` (vk, msg, signature) triples made on the host by EdSchnorr."""
+    from openzl_tpu_torch.crypto.signature.schnorr import EdSchnorr
+
+    scheme, rng, out = EdSchnorr(spec), random.Random(seed), []
+    for _ in range(count):
+        sk = scheme.generate_key(rng)
+        msg = rng.randrange(spec.base.modulus)
+        out.append((scheme.derive(sk), msg, scheme.sign(sk, rng.randrange(spec.order), msg)))
+    return out
+
+
+def _batched_verify(kernels, device, verifies: int, distinct: int, seed: int):
+    """Part (b): `verifies` Schnorr verifications on Baby Jubjub in one
+    batch, tiled from `distinct` signatures, one in eight forged (a wrong
+    message or the scalar + 1). Returns (launches, wall ms, verifications/s)."""
+    import dataclasses
+
+    import torch
+
+    from openzl_tpu_torch.crypto.ec_gadget import PointVar
+    from openzl_tpu_torch.crypto.signature.schnorr import EdSchnorr
+    from openzl_tpu_torch.curves.edwards import BABY_JUBJUB as spec
+    from openzl_tpu_torch.eclair import TorchCompiler
+    from openzl_tpu_torch.fields import limb
+
+    t0 = time.perf_counter()
+    sigs = _signatures(spec, distinct, seed)
+    t_sign = time.perf_counter() - t0
+    rows = []
+    for i in range(verifies):
+        vk, msg, sig = sigs[i % distinct]
+        if i % 8 == 7:
+            if (i // 8) % 2:
+                msg = (msg + 1) % spec.base.modulus
+            else:
+                sig = dataclasses.replace(sig, scalar=(sig.scalar + 1) % spec.order)
+        rows.append((vk, msg, sig))
+    scheme = EdSchnorr(spec)
+    t0 = time.perf_counter()
+    native = {}
+    for vk, msg, sig in rows:
+        key = (vk, msg, sig.scalar, sig.nonce_point)
+        if key not in native:
+            native[key] = scheme.verify(vk, msg, sig)
+    t_native = time.perf_counter() - t0
+
+    def col(vals):
+        return limb.tensor(limb.pack_mont(spec.base, vals), device)
+
+    vkv = PointVar(col([r[0][0] for r in rows]), col([r[0][1] for r in rows]))
+    Rv = PointVar(col([r[2].nonce_point[0] for r in rows]), col([r[2].nonce_point[1] for r in rows]))
+    msgv, sv = col([r[1] for r in rows]), col([r[2].scalar for r in rows])
+    com = TorchCompiler(spec.base, (verifies,), device)
+    walls = []
+    for rep in range(2):
+        for k in kernels:
+            k.reset()
+        mask, ms = _wall(lambda: schnorr_batch_mask(com, spec, vkv, msgv, sv, Rv), torch.device(device))
+        got = mask.tolist()
+        walls.append(ms)
+        if rep == 0:
+            launches = {k.name: k.launches for k in kernels}
+    want = [native[(vk, msg, sig.scalar, sig.nonce_point)] for vk, msg, sig in rows]
+    forged = [i for i in range(verifies) if i % 8 == 7]
+    log(f"[gadgets] (b) {verifies} Schnorr verifications on baby_jubjub in one batch ({distinct} distinct "
+        f"signatures, signed in {t_sign:.1f} s; {len(native)} distinct inputs verified natively in "
+        f"{t_native:.1f} s); {sum(got)} pass, {len(forged)} forged")
+    if got != want:
+        fail("[gadgets] the batched verification mask differs from EdSchnorr.verify")
+    if any(got[i] for i in forged) or not all(got[i] for i in range(verifies) if i % 8 != 7):
+        fail("[gadgets] a forgery passed or a valid signature failed")
+    rate = verifies / (walls[-1] / 1e3)
+    log(f"[gadgets] (b) mask equals EdSchnorr.verify on every input, every forgery rejected; wall "
+        f"{walls[0]:.1f} ms (first), {walls[1]:.1f} ms (second), {rate:.1f} verifications/s; launches of the "
+        f"first: {launches}")
+    if torch.device(device).type == "cuda" and not (launches["mont_mul"] and launches["mont_pow"]):
+        fail(f"[gadgets] K1 or mont_pow never launched in the batched verification: {launches}")
+    return launches, walls, rate
+
+
+def _schnorr_proof(g16, spec, sigs, kernels, proofs: int, tag: str):
+    """Parts (c) and (d): one R1CS of len(sigs) verification circuits,
+    compiled once, `proofs` prove requests, each verified, and a public
+    message + 1 rejected. Returns (launches during the proves, stats)."""
+    from openzl_tpu_torch.crypto.signature.schnorr import verification_circuit
+
+    t0 = time.perf_counter()
+    setup = g16.context_compiler()
+    for _ in sigs:
+        verification_circuit(setup, spec)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prove = g16.proof_compiler()
+    for vk, msg, sig in sigs:
+        verification_circuit(prove, spec, vk, msg, sig)
+    t_prove = time.perf_counter() - t0
+    cs = prove.cs
+    public = [v for vk, msg, _ in sigs for v in (vk[0], vk[1], msg)]
+    log(f"[gadgets] {tag}: {len(sigs)} verification circuits over {spec.name}: {cs.num_constraints} constraints, "
+        f"{cs.num_variables} variables, {cs.num_instance} public; synthesis {t_setup * 1e3:.0f} ms (setup), "
+        f"{t_prove * 1e3:.0f} ms (prove)")
+    rng = random.Random(0x5C)
+    t0 = time.perf_counter()
+    pk = g16.compile(setup.cs, rng)
+    t_compile = (time.perf_counter() - t0) * 1e3
+    log(f"[gadgets] {tag}: compile {t_compile:.0f} ms, domain 2^{pk.domain_log2}")
+    for k in kernels:
+        k.reset()
+    walls = []
+    for i in range(proofs):
+        t0 = time.perf_counter()
+        proof = g16.prove(pk, cs, rng)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        ok = g16.verify(pk.vk, public, proof)
+        log(f"[gadgets] {tag}: prove {i + 1}: {walls[-1]:.1f} ms, verify {ok}; "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in g16.laps["prove"]))
+        if not ok:
+            fail(f"[gadgets] {tag}: proof {i + 1} did not verify")
+    launches = {k.name: k.launches for k in kernels}
+    fuzzed = list(public)
+    fuzzed[2] = (fuzzed[2] + 1) % g16.fr.modulus
+    if g16.verify(pk.vk, fuzzed, proof):
+        fail(f"[gadgets] {tag}: a public message + 1 was accepted")
+    log(f"[gadgets] {tag}: a public message + 1 rejected; launches during the {proofs} proves: {launches}")
+    stats = {"signatures": len(sigs), "constraints": cs.num_constraints, "domain_log2": pk.domain_log2,
+             "synthesis_ms": [t_setup * 1e3, t_prove * 1e3], "compile_ms": t_compile, "prove_ms": walls}
+    return launches, stats, {k.name: k.by_limbs.get(24, 0) for k in kernels}
+
+
+def phase_gadgets(all_kernels, groth16_kernels, device="cuda", log_ops: int = 16, sample: int = 256,
+                  verifies: int = 1024, distinct: int = 64, signatures: int = 16, proofs: int = 2, seed: int = 9):
+    """Phase 8: the gadget layer on the card. (a) `TorchCompiler` ops over
+    BN254 Fr and BLS12-381 Fr against `NativeCompiler`; (b) batched
+    Schnorr verification on Baby Jubjub; (c) a BN254 Groth16 proof of
+    `signatures` Schnorr verifications in one R1CS; (d) `Groth16()` with no
+    arguments (BLS12-381) on one Jubjub signature, whose K3, K4, K9 and
+    scan launches must be at 24 limbs. Returns the phase's record."""
+    import torch
+
+    from openzl_tpu_torch.curves.edwards import BABY_JUBJUB, jubjub
+    from openzl_tpu_torch.fields.spec import BLS12_381_FR, BN254_FR
+    from openzl_tpu_torch.proof_systems import BLS12_381, BN254, Groth16
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    rng = random.Random(seed)
+    ops = {spec.name: _gadget_ops(spec, device, log_ops, sample, rng) for spec in (BN254_FR, BLS12_381_FR)}
+    k1 = [k for k in groth16_kernels if k.name in ("mont_mul", "mont_pow")]
+    v_launches, v_walls, rate = _batched_verify(k1, device, verifies, distinct, seed)
+
+    sigs = _signatures(BABY_JUBJUB, signatures, seed + 1)
+    launches, stats, _ = _schnorr_proof(Groth16(BN254, device), BABY_JUBJUB, sigs, all_kernels, proofs,
+                                        "(c) bn254")
+    missing = [k.name for k in groth16_kernels if launches[k.name] == 0]
+    if cuda and missing:
+        fail(f"[gadgets] (c) Groth16 kernels never launched: {missing}")
+
+    g16 = Groth16() if cuda else Groth16(device=device)
+    if g16.pairing is not BLS12_381:
+        fail(f"Groth16() picks {g16.pairing.name}, not bls12_381")
+    jj = jubjub()
+    bls_launches, bls_stats, at24 = _schnorr_proof(g16, jj, _signatures(jj, 1, seed + 2), all_kernels, 1,
+                                                   "(d) bls12_381")
+    at24 = {k: v for k, v in at24.items() if k in EC_KERNELS}
+    log(f"[gadgets] (d) launches at 24 limbs: {at24}")
+    if cuda and not all(at24.values()):
+        fail(f"[gadgets] (d) kernels never launched at 24 limbs: {[k for k, v in at24.items() if not v]}")
+    wall = time.perf_counter() - t_phase
+    log(f"[gadgets] phase 8 wall {wall:.1f} s")
+    return {"ops_ms": ops, "verify": {"count": verifies, "distinct": distinct, "wall_ms": v_walls,
+                                      "per_s": rate, "launches": v_launches},
+            "proof": {**stats, "launches": launches}, "default_proof": {**bls_stats, "launches": bls_launches,
+                                                                        "at_24_limbs": at24},
+            "wall_s": wall}
+
+
 def transforms_of(root: pathlib.Path, reps: int = 20, seed: int = 7) -> None:
     """Phase 7's whole four-step transforms alone (`_fourstep_runs`, BN254
     Fr at 2^17, batch 1 and 3, and 2^20) of the port in checkout `root`,
@@ -1626,6 +1907,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--chain", type=int, default=512, help="Poseidon chain links of the slices")
     ap.add_argument("--proofs", type=int, default=3, help="prove requests answered")
+    ap.add_argument("--signatures", type=int, default=16,
+                    help="Schnorr verification circuits in phase 8's BN254 proof")
     ap.add_argument("--transforms-of", metavar="DIR",
                     help="only time phase 7's whole four-step transforms of the port in checkout DIR")
     args = ap.parse_args()
@@ -1671,6 +1954,8 @@ def main() -> None:
     # BLS12-381 KZG at the EIP-4844 blob size (4096 coefficients)
     bls_kzg, bls_kzg_launches = phase_kzg(kernels, bls_b2_fold, log_d=12, log_big=0, seed=8, pairing=BLS12_381)
     _merge(bls, {k: v for k, v in bls_kzg.items() if k in EC_KERNELS})
+    gadgets = phase_gadgets(kernels, groth16_kernels, signatures=args.signatures)
+    log("[gadgets] " + json.dumps(gadgets))
 
     # bound: the larger of the word products over the card's 32-bit integer
     # multiply rate (64 multiply issues per clock per SM, two per 32x32->64
@@ -1769,6 +2054,14 @@ def main() -> None:
         if k.name == "small_ntt":
             # phase 7's whole transforms through the entry points
             row["transforms"] = [dict(zip(TRANSFORM_KEYS, r)) for r in FOURSTEP_RUNS]
+        if k.name in ("mont_mul", "mont_pow"):
+            # phase 8: launches in the batched Schnorr verification (b)
+            row["gadgets_verify_launches"] = gadgets["verify"]["launches"][k.name]
+        if k.name in gadgets["proof"]["launches"]:
+            # phase 8: launches in the proves of the Schnorr proof (c) and
+            # of the default Groth16's Jubjub proof (d)
+            row["gadgets_proof_launches"] = {"bn254": gadgets["proof"]["launches"][k.name],
+                                             "bls12_381": gadgets["default_proof"]["launches"][k.name]}
         if k.name == "poseidon2_permute":
             # the bound that also counts the linear layers' least additions
             row["bound_with_additions_ms"] = bound(K7_LINEAR["bn254_fr", 3][2])[0]

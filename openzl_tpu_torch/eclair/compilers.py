@@ -1,10 +1,16 @@
-"""The R1CS compiler behind the gadget API.
+"""The three compilers behind the gadget API (the ``COM`` abstraction).
 
-Carried from `openzl_tpu/eclair/compilers.py`: `FpVar` and `R1CSCompiler`,
-which are pure Python. The reference's `NativeCompiler` is not needed by the
-prover and its `JaxCompiler` waits for a torch counterpart (ROADMAP.md,
-modules to port, item 5). The port's copy of the Poseidon gadget
-(`crypto.poseidon.gadget`) runs unchanged under this compiler.
+Port of `openzl_tpu/eclair/compilers.py`. One gadget function runs in three
+environments (eclair/src/lib.rs:27-84):
+
+  * :class:`NativeCompiler`: host Python ints mod p, a plain copy of the
+    reference's.
+  * :class:`TorchCompiler`: batched Montgomery limb tensors; the
+    counterpart of the reference's `JaxCompiler`. Products go through
+    kernel K1 on a CUDA tensor, inversions through K1's exponentiation.
+  * :class:`R1CSCompiler`: records constraints into an :class:`R1CS`.
+    The port's copy of the Poseidon gadget (`crypto.poseidon.gadget`) and
+    the EC and Schnorr gadgets run unchanged under it.
 
 Constraint-count semantics mirror the arkworks R1CS compiler: add, sub,
 neg and scale are free; mul, square and inv cost one constraint; is_eq two;
@@ -17,8 +23,252 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
-from ..fields.spec import FieldSpec
+import torch
+
+from ..fields import limb
+from ..fields.spec import LIMB_BITS, FieldSpec
 from .r1cs import R1CS, LinComb, SynthesisMode
+
+
+# ---------------------------------------------------------------------------
+# Native (host int) compiler
+# ---------------------------------------------------------------------------
+
+
+class NativeCompiler:
+    """Field values are Python ints in [0, p); booleans are Python bools."""
+
+    def __init__(self, spec: FieldSpec):
+        self.spec = spec
+        self.p = spec.modulus
+
+    # allocation: native execution passes values through
+    # (eclair/src/alloc.rs Constant/Variable collapse to identity for COM=())
+    def constant(self, x: int):
+        return x % self.p
+
+    def public_input(self, x: int):
+        return x % self.p
+
+    def secret_witness(self, x: int):
+        return x % self.p
+
+    # arithmetic
+    def add(self, a, b):
+        return (a + b) % self.p
+
+    def sub(self, a, b):
+        return (a - b) % self.p
+
+    def neg(self, a):
+        return (-a) % self.p
+
+    def mul(self, a, b):
+        return a * b % self.p
+
+    def square(self, a):
+        return a * a % self.p
+
+    def mul_const(self, a, c: int):
+        return a * c % self.p
+
+    def add_const(self, a, c: int):
+        return (a + c) % self.p
+
+    def inv(self, a):
+        return pow(a, -1, self.p)
+
+    def pow5(self, a):
+        return pow(a, 5, self.p)
+
+    # boolean structure (eclair/src/bool.rs)
+    def bool_constant(self, b: bool):
+        return bool(b)
+
+    def and_(self, a, b):
+        return a and b
+
+    def or_(self, a, b):
+        return a or b
+
+    def xor_(self, a, b):
+        return a != b
+
+    def not_(self, a):
+        return not a
+
+    def assert_true(self, b):
+        assert b, "native assertion failed"
+
+    def assert_eq(self, a, b):
+        assert a % self.p == b % self.p, f"native assert_eq failed: {a} != {b}"
+
+    def is_eq(self, a, b):
+        return a % self.p == b % self.p
+
+    def is_zero(self, a):
+        return a % self.p == 0
+
+    def select(self, bit, a, b):
+        """bit ? a : b (eclair/src/bool.rs:137-160 ConditionalSelect)."""
+        return a if bit else b
+
+    def swap(self, bit, a, b):
+        """(a, b) -> (b, a) when bit (eclair/src/bool.rs:209-216)."""
+        return (b, a) if bit else (a, b)
+
+    # bits (eclair/src/bool.rs:83-109 BitDecomposition, num.rs range assert)
+    def to_bits_le(self, a, n_bits: int):
+        # Semantic parity with the R1CS compiler: a partial decomposition
+        # there is unsatisfiable when a >= 2^n_bits, so native execution
+        # must fail too rather than silently truncate.
+        assert 0 <= a < (1 << n_bits), f"{a} exceeds {n_bits} bits"
+        return [bool((a >> i) & 1) for i in range(n_bits)]
+
+    def from_bits_le(self, bits):
+        return sum(1 << i for i, b in enumerate(bits) if b) % self.p
+
+    def assert_within_bit_range(self, a, n_bits: int):
+        assert 0 <= a < (1 << n_bits), f"{a} out of {n_bits}-bit range"
+
+    def divmod_hint(self, a, modulus: int):
+        """(a // modulus, a % modulus): hint pair for gadgets.div_rem_mod_prime."""
+        return divmod(a, modulus)
+
+
+# ---------------------------------------------------------------------------
+# Batched torch compiler (the card's compute path)
+# ---------------------------------------------------------------------------
+
+
+class TorchCompiler:
+    """Field values are Montgomery limb tensors (n_limbs, *batch) in
+    `limb.DTYPE`; booleans are `torch.bool` tensors of the batch shape.
+    Every op works on the whole batch at once, with no data-dependent
+    Python control flow. Reference: `JaxCompiler`
+    (`openzl_tpu/eclair/compilers.py:142`). Like it, this compiler has no
+    `divmod_hint`: bigint division has no batched limb form.
+
+    `device` defaults to "cuda", where products launch K1 and inversions
+    K1's exponentiation; "cpu" runs their plain versions."""
+
+    def __init__(self, spec: FieldSpec, batch_shape: Tuple[int, ...] = (), device="cuda"):
+        self.spec = spec
+        self.p = spec.modulus
+        self.batch_shape = tuple(batch_shape)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("TorchCompiler on cuda, but torch sees no CUDA device")
+        self._consts: dict = {}
+
+    def _const(self, x: int) -> torch.Tensor:
+        """Montgomery limbs of x mod p, shaped (n_limbs, 1, ...) on the
+        compiler's device (one host packing per distinct constant)."""
+        x %= self.p
+        t = self._consts.get(x)
+        if t is None:
+            shape = (self.spec.n_limbs,) + (1,) * len(self.batch_shape)
+            t = limb.tensor(limb.pack_mont(self.spec, x), self.device).reshape(shape)
+            self._consts[x] = t
+        return t
+
+    # allocation: ints lift to constant Montgomery tensors; tensors pass through
+    def constant(self, x):
+        if isinstance(x, int):
+            return self._const(x).expand((self.spec.n_limbs,) + self.batch_shape)
+        return x
+
+    public_input = constant
+    secret_witness = constant
+
+    # arithmetic
+    def add(self, a, b):
+        return limb.add(self.spec, a, b)
+
+    def sub(self, a, b):
+        return limb.sub(self.spec, a, b)
+
+    def neg(self, a):
+        return limb.neg(self.spec, a)
+
+    def mul(self, a, b):
+        return limb.mont_mul(self.spec, a, b)
+
+    def square(self, a):
+        return limb.mont_sqr(self.spec, a)
+
+    def mul_const(self, a, c: int):
+        return limb.mont_mul(self.spec, a, self._const(c))
+
+    def add_const(self, a, c: int):
+        return limb.add(self.spec, a, self.constant(c))
+
+    def inv(self, a):
+        return limb.mont_inv(self.spec, a)
+
+    def pow5(self, a):
+        return limb.mont_pow5(self.spec, a)
+
+    # boolean structure
+    def bool_constant(self, b: bool):
+        return torch.full(self.batch_shape, bool(b), dtype=torch.bool, device=self.device)
+
+    def and_(self, a, b):
+        return torch.logical_and(a, b)
+
+    def or_(self, a, b):
+        return torch.logical_or(a, b)
+
+    def xor_(self, a, b):
+        return torch.logical_xor(a, b)
+
+    def not_(self, a):
+        return torch.logical_not(a)
+
+    def assert_true(self, b):
+        # returns the mask for the caller to check after the batch ran
+        return b
+
+    def assert_eq(self, a, b):
+        return limb.eq(a, b)
+
+    def is_eq(self, a, b):
+        return limb.eq(a, b)
+
+    def is_zero(self, a):
+        return limb.is_zero(a)
+
+    def _mask(self, bit, a):
+        return torch.as_tensor(bit, device=self.device).expand(a.shape[1:])
+
+    def select(self, bit, a, b):
+        return limb.select(self._mask(bit, a), a, b)
+
+    def swap(self, bit, a, b):
+        bit = self._mask(bit, a)
+        return limb.select(bit, b, a), limb.select(bit, a, b)
+
+    # bits: canonical-form little-endian booleans
+    def to_bits_le(self, a, n_bits: int):
+        canon = limb.from_mont(self.spec, a)
+        return [((canon[i // LIMB_BITS] >> (i % LIMB_BITS)) & 1).bool() for i in range(n_bits)]
+
+    def from_bits_le(self, bits):
+        out = torch.zeros((self.spec.n_limbs,) + tuple(bits[0].shape), dtype=limb.DTYPE, device=self.device)
+        for i, b in enumerate(bits):
+            out[i // LIMB_BITS] += b.to(limb.DTYPE) << (i % LIMB_BITS)
+        return limb.to_mont(self.spec, out)
+
+    def assert_within_bit_range(self, a, n_bits: int):
+        canon = limb.from_mont(self.spec, a)
+        mask_ok = torch.ones(canon.shape[1:], dtype=torch.bool, device=canon.device)
+        for i in range(self.spec.n_limbs):
+            lo = i * LIMB_BITS
+            if lo >= n_bits:
+                mask_ok &= canon[i] == 0
+            elif lo + LIMB_BITS > n_bits:
+                mask_ok &= (canon[i] >> (n_bits - lo)) == 0
+        return mask_ok
 
 
 # ---------------------------------------------------------------------------

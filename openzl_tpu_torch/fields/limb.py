@@ -274,6 +274,13 @@ def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont_mul(spec, a, a)
 
 
+def mont_pow5(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """x^5 (the Poseidon S-box) in Montgomery form: three K1 products."""
+    a2 = mont_mul(spec, a, a)
+    a4 = mont_mul(spec, a2, a2)
+    return mont_mul(spec, a4, a)
+
+
 def mont_pow(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
     """a^exponent for a Python-int exponent, MSB-first square and multiply:
     one launch of K1's exponentiation on a CUDA tensor, the plain chain of

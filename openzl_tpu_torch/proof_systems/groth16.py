@@ -1,6 +1,7 @@
 """Groth16 zk-SNARK: compile / prove / verify on the torch kernel stack.
 
-Port of the device branch of `openzl_tpu/proof_systems/groth16.py`:
+Port of `openzl_tpu/proof_systems/groth16.py`. The device backend (the
+default):
 
   * compile: QAP columns evaluated at the toxic tau by transposed sparse
     matvecs (K1), the query scalars derived on the device, every query
@@ -11,6 +12,12 @@ Port of the device branch of `openzl_tpu/proof_systems/groth16.py`:
     (K3, K4); proof assembly on the host;
   * verify: the pairing check (`openzl_tpu_torch.ref.pairing`, native
     engine when `native/libozlfield.so` is built).
+
+The host backend (`backend="host"`, or "auto" below 512 variables) holds
+the queries as affine int lists made by the Python EC oracle, evaluates
+the QAP columns and rows on the host and runs the proving MSMs there; the
+H polynomial's NTTs still run on the `Groth16`'s device. `device_key`
+lifts such a key onto the device.
 
 Randomness (toxic waste, r and s) comes from a Python `random.Random`
 exactly as in the reference, so one seed gives the same bytes in both
@@ -134,6 +141,8 @@ class ProvingKey:
     l_query: JPoint  # (num_witness,) (beta u + alpha v + w) / delta G1
     domain_log2: int
     num_instance_total: int
+    #: queries held as affine int lists (host backend) instead of JPoints
+    host: bool = False
     #: sparse QAP matrices from compile time; not serialized
     prepared: Optional[PreparedCircuit] = None
 
@@ -142,8 +151,13 @@ class ProvingKey:
         return (g1, g1, g2, g1, g1)
 
     @property
-    def device(self) -> torch.device:
-        return self.a_query.x.device
+    def device(self) -> Optional[torch.device]:
+        """The query tables' device; None for a host-form key."""
+        return None if self.host else self.a_query.x.device
+
+    def _query_affine(self, query, curve):
+        """Affine int list of one query table, host or device form."""
+        return list(query) if self.host else jac.to_affine_ints(curve, query)
 
     def to_bytes(self, compressed: bool = False) -> bytes:
         """ark-groth16 ProvingKey member order (vk, beta_g1, delta_g1,
@@ -157,7 +171,7 @@ class ProvingKey:
         w.point(g1, self.beta_g1, compressed)
         w.point(g1, self.delta_g1, compressed)
         for name, curve in zip(_QUERIES, self._curves()):
-            pts = jac.to_affine_ints(curve, getattr(self, name))
+            pts = self._query_affine(getattr(self, name), curve)
             w.vec(pts, lambda pt, c=curve: w.point(c, pt, compressed))
         w.u64(self.domain_log2)
         w.u64(self.num_instance_total)
@@ -188,25 +202,34 @@ class ProvingKey:
         )
 
     @classmethod
-    def from_reference(cls, pk, device="cuda") -> "ProvingKey":
-        """From a reference (JAX package) ProvingKey: device-form queries
-        through `np.asarray` of their limb arrays, host-form ones through
-        their affine int lists, over the port's pairing of the same name."""
+    def from_reference(cls, pk, device="cuda", backend: str = "device") -> "ProvingKey":
+        """From a reference (JAX package) ProvingKey, over the port's
+        pairing of the same name: device-form queries through `np.asarray`
+        of their limb arrays, host-form ones through their affine int
+        lists, onto `device`. With `backend="host"` a host-form key stays
+        in host form (its affine lists, `host=True`)."""
+        if backend not in ("host", "device"):
+            raise ValueError(f"backend must be 'host' or 'device', not {backend!r}")
         pairing = refpair.PAIRINGS[pk.pairing.name]
         g1, g2 = pairing.g1, pairing.g2
+        host = backend == "host"
+        if host and not pk.host:
+            raise ValueError("backend='host' takes a host-form key; this one is in device form")
         queries = {}
         for k, curve in zip(_QUERIES, (g1, g1, g2, g1, g1)):
             q = getattr(pk, k)
-            if pk.host:
+            if host:
+                queries[k] = list(q)
+            elif pk.host:
                 queries[k] = jac.from_affine_ints(curve, list(q), device)
             else:
                 queries[k] = JPoint(*(limb.tensor(np.asarray(v), device) for v in q))
-        prepared = PreparedCircuit.from_reference(pk.prepared) if pk.prepared is not None else None
+        prepared = PreparedCircuit.from_reference(pk.prepared) if pk.prepared is not None and not host else None
         return cls(
             pairing=pairing, vk=VerifyingKey.from_reference(pk.vk),
             beta_g1=pk.beta_g1, delta_g1=pk.delta_g1, **queries,
             domain_log2=pk.domain_log2, num_instance_total=pk.num_instance_total,
-            prepared=prepared,
+            host=host, prepared=prepared,
         )
 
 
@@ -277,9 +300,24 @@ def _lagrange_at(spec: FieldSpec, log_n: int, tau: int) -> List[int]:
     return out
 
 
+def _col_evals(rows, lag: List[int], num_vars: int, p: int) -> List[int]:
+    """u_k(tau) = sum_j rows[j][k] ell_j(tau): sparse column sums (host)."""
+    out = [0] * num_vars
+    for j, lc in enumerate(rows):
+        lj = lag[j]
+        for k, coeff in lc.terms.items():
+            out[k] = (out[k] + coeff * lj) % p
+    return out
+
+
 def _fixed_base_host(curve, scalars: Sequence[int]):
+    """Host-oracle fixed-base scalars -> list of affine points."""
     G = refc.generator(curve)
     return [refc.scalar_mul(curve, k, G) for k in scalars]
+
+
+def _row_dot(rows, assignment: List[int], p: int) -> List[int]:
+    return [lc.eval(assignment, p) for lc in rows]
 
 
 _FB_WINDOW = 8
@@ -330,16 +368,33 @@ class Laps:
 # ---------------------------------------------------------------------------
 
 
+#: below this many variables `backend="auto"` compiles a host-form key
+AUTO_HOST_VARS = 512
+
+
 class Groth16:
     """compile / prove / verify on one torch device: "cuda" (the default)
-    runs the CUDA kernels, "cpu" their plain versions."""
+    runs the CUDA kernels, "cpu" their plain versions.
 
-    def __init__(self, pairing: PairingSpec = BLS12_381, device="cuda"):
+    backend: "device" (the default) encodes the queries and runs the
+    proving MSMs on the device; "host" uses the Python EC oracle for them
+    (the H polynomial's NTTs still run on the device); "auto" picks host
+    below `AUTO_HOST_VARS` variables, as the reference does."""
+
+    def __init__(self, pairing: PairingSpec = BLS12_381, device="cuda", backend: str = "device"):
+        if backend not in ("auto", "host", "device"):
+            raise ValueError(f"backend must be 'auto', 'host' or 'device', not {backend!r}")
         self.pairing = pairing
         self.fr = pairing.g1.scalar
         self.device = torch.device(device)
+        self.backend = backend
         #: stage tables of the last compile and prove
         self.laps: dict = {}
+
+    def _use_host(self, num_vars: int) -> bool:
+        if self.backend == "auto":
+            return num_vars < AUTO_HOST_VARS
+        return self.backend == "host"
 
     def context_compiler(self) -> R1CSCompiler:
         return R1CSCompiler.for_contexts(self.fr)
@@ -367,6 +422,8 @@ class Groth16:
         fr, p, dev = self.fr, self.fr.modulus, self.device
         g1, g2 = self.pairing.g1, self.pairing.g2
         alpha, beta, gamma, delta, tau = (rng.randrange(1, p) for _ in range(5))
+        if self._use_host(cs.num_variables):
+            return self._compile_host(cs, alpha, beta, gamma, delta, tau)
         laps = Laps(dev)
         prepared = self.prepare(cs)
         log_n = prepared.log_n
@@ -399,11 +456,52 @@ class Groth16:
         h_can = limb.from_mont(fr, limb.geom_series_mont(fr, z_delta, tau, n - 1, dev))
         laps.lap("scalar_vectors")
 
-        a_query, b_g1_query, b_g2_query, h_query, l_query = _setup_queries(
-            g1, g2, u_can, v_can, h_can, l_can
+        queries = _setup_queries(g1, g2, u_can, v_can, h_can, l_can)
+        laps.lap("fixed_base_queries")
+        pk = self._key(queries, gamma_abc, alpha, beta, gamma, delta, log_n, ni, False, prepared)
+        laps.lap("verifying_key")
+        self.laps["compile"] = laps.rows
+        return pk
+
+    def _compile_host(self, cs: R1CS, alpha, beta, gamma, delta, tau) -> ProvingKey:
+        """The host backend's setup: QAP columns by sparse host sums and
+        every query encoded by the Python EC oracle."""
+        fr, p = self.fr, self.fr.modulus
+        g1, g2 = self.pairing.g1, self.pairing.g2
+        laps = Laps("cpu")
+        rows_a, rows_b, rows_c = _qap_matrices(cs)
+        log_n = _domain_log2(len(rows_a))
+        n = 1 << log_n
+        num_vars, ni = cs.num_variables, cs.num_instance_total
+        lag = _lagrange_at(fr, log_n, tau)
+        laps.lap("lagrange")
+        gamma_inv = pow(gamma, -1, p)
+        delta_inv = pow(delta, -1, p)
+        z_delta = (pow(tau, n, p) - 1) % p * delta_inv % p
+        u, v, w = (_col_evals(rows, lag, num_vars, p) for rows in (rows_a, rows_b, rows_c))
+        laps.lap("qap_evals")
+        abc = [(beta * u[k] + alpha * v[k] + w[k]) % p for k in range(num_vars)]
+        gamma_abc = [x * gamma_inv % p for x in abc[:ni]]
+        l_scalars = [x * delta_inv % p for x in abc[ni:]]
+        h_scalars, acc = [], z_delta
+        for _ in range(n - 1):  # tau^i Z(tau) / delta
+            h_scalars.append(acc)
+            acc = acc * tau % p
+        laps.lap("host_scalars")
+        queries = (
+            _fixed_base_host(g1, u), _fixed_base_host(g1, v), _fixed_base_host(g2, v),
+            _fixed_base_host(g1, h_scalars), _fixed_base_host(g1, l_scalars),
         )
         laps.lap("fixed_base_queries")
+        pk = self._key(queries, gamma_abc, alpha, beta, gamma, delta, log_n, ni, True, None)
+        laps.lap("verifying_key")
+        self.laps["compile"] = laps.rows
+        return pk
 
+    def _key(self, queries, gamma_abc, alpha, beta, gamma, delta, log_n, ni, host, prepared) -> ProvingKey:
+        """The verifying key's points on the host oracle, and the proving
+        key around the five query tables."""
+        g1, g2 = self.pairing.g1, self.pairing.g2
         G1, G2 = refc.generator(g1), refc.generator(g2)
         vk = VerifyingKey(
             pairing=self.pairing,
@@ -413,17 +511,28 @@ class Groth16:
             delta_g2=refc.scalar_mul(g2, delta, G2),
             gamma_abc_g1=_fixed_base_host(g1, gamma_abc),
         )
-        pk = ProvingKey(
+        return ProvingKey(
             pairing=self.pairing, vk=vk,
             beta_g1=refc.scalar_mul(g1, beta, G1),
             delta_g1=refc.scalar_mul(g1, delta, G1),
-            a_query=a_query, b_g1_query=b_g1_query, b_g2_query=b_g2_query,
-            h_query=h_query, l_query=l_query,
-            domain_log2=log_n, num_instance_total=ni, prepared=prepared,
+            **dict(zip(_QUERIES, queries)),
+            domain_log2=log_n, num_instance_total=ni, host=host, prepared=prepared,
         )
-        laps.lap("verifying_key")
-        self.laps["compile"] = laps.rows
-        return pk
+
+    def device_key(self, pk: ProvingKey, cs: Optional[R1CS] = None) -> ProvingKey:
+        """Lift a host-form ProvingKey (affine int query lists: a key from
+        `backend="host"` setup) onto this `Groth16`'s device for the kernel
+        prover. `cs` (or pk.prepared) supplies the sparse QAP matrices."""
+        if not pk.host:
+            return pk
+        prepared = pk.prepared
+        if prepared is None:
+            if cs is None:
+                raise ValueError("device_key needs the circuit (cs)")
+            prepared = self.prepare(cs)
+        lifted = {k: jac.from_affine_ints(c, getattr(pk, k), self.device)
+                  for k, c in zip(_QUERIES, pk._curves())}
+        return dataclasses.replace(pk, **lifted, host=False, prepared=prepared)
 
     # -- prove ---------------------------------------------------------------
 
@@ -435,37 +544,53 @@ class Groth16:
 
     def prove(self, pk: ProvingKey, cs: R1CS, rng, prepared: Optional[PreparedCircuit] = None) -> Proof:
         z = cs.assignment()
+        if pk.host:
+            return self._prove_z(pk, z, rng, None, cs=cs)
         return self._prove_z(pk, z, rng, prepared or pk.prepared or self.prepare(cs))
 
     def prove_assigned(self, pk: ProvingKey, z, rng, prepared: Optional[PreparedCircuit] = None) -> Proof:
         """Prove from a full assignment: the planar (n_limbs, num_vars)
         canonical limb array of `WitnessCalculator.evaluate_limbs`, or a
         sequence of ints. Needs `prepared` or a key from `compile`."""
+        if pk.host:
+            raise ValueError("a host-form key proves through prove(pk, cs, rng), or lift it with device_key")
         prepared = prepared or pk.prepared
         if prepared is None:
             raise ValueError("prove_assigned needs the prepared matrices (Groth16.prepare)")
         return self._prove_z(pk, z, rng, prepared)
 
-    def _prove_z(self, pk: ProvingKey, z, rng, prepared: PreparedCircuit) -> Proof:
+    def _prove_z(self, pk: ProvingKey, z, rng, prepared: Optional[PreparedCircuit], cs: Optional[R1CS] = None) -> Proof:
+        """Prove from a full assignment `z`; a host-form key takes it as
+        ints with the circuit `cs`, a device-form key as limbs or ints with
+        the `prepared` matrices."""
         fr, p = self.fr, self.fr.modulus
         g1, g2 = self.pairing.g1, self.pairing.g2
-        dev = pk.device
+        dev = self.device if pk.host else pk.device
         laps = Laps(dev)
-        if not isinstance(z, np.ndarray):
-            z = limb.pack(fr, np.array(list(z), dtype=object))
-        num_vars = z.shape[1]
-        if prepared.num_vars != num_vars:
-            raise ValueError(f"assignment has {num_vars} variables, circuit {prepared.num_vars}")
         ni = pk.num_instance_total
         n = 1 << pk.domain_log2
 
-        z_can = limb.tensor(z, dev)
-        z_mont = limb.to_mont(fr, z_can)
-        laps.lap("pack_witness")
-        ua = prepared.a.matvec(z_mont)
-        va = prepared.b.matvec(z_mont)
-        wa = prepared.c.matvec(z_mont)
-        laps.lap("qap_matvec")
+        if pk.host:
+            # u/v/w = (A z, B z, C z) by host row sums, lifted for the NTTs
+            rows = _qap_matrices(cs)
+            ua, va, wa = (
+                limb.tensor(limb.pack_mont(fr, np.array(_row_dot(r, z, p) + [0] * (n - len(r)), dtype=object)), dev)
+                for r in rows
+            )
+            laps.lap("qap_rows")
+        else:
+            if not isinstance(z, np.ndarray):
+                z = limb.pack(fr, np.array(list(z), dtype=object))
+            num_vars = z.shape[1]
+            if prepared.num_vars != num_vars:
+                raise ValueError(f"assignment has {num_vars} variables, circuit {prepared.num_vars}")
+            z_can = limb.tensor(z, dev)
+            z_mont = limb.to_mont(fr, z_can)
+            laps.lap("pack_witness")
+            ua = prepared.a.matvec(z_mont)
+            va = prepared.b.matvec(z_mont)
+            wa = prepared.c.matvec(z_mont)
+            laps.lap("qap_matvec")
 
         # one batched iNTT and coset NTT for u, v and w: (n_limbs, N, 3)
         uc, vc, wc = nttmod.coset_ntt(fr, nttmod.intt(fr, torch.stack([ua, va, wa], dim=2))).unbind(2)
@@ -478,13 +603,22 @@ class Groth16:
 
         r, s = rng.randrange(p), rng.randrange(p)
 
-        g1_sums, b2_sum = _prove_msms(g1, g2, ni, z_can, h_canon, pk)
-        laps.lap("msm_kernels")
-        g1_pts = jac.to_affine_ints(g1, g1_sums)
-        b2_msm = jac.to_affine_ints(g2, b2_sum)
-        a_msm, b1_msm, h_msm = g1_pts[:3]
-        l_msm = g1_pts[3] if len(g1_pts) > 3 else None
-        laps.lap("msm_readback")
+        if pk.host:
+            h_ints = [int(v) for v in limb.unpack(fr, h_canon)]
+            a_msm = refc.msm(g1, z, pk.a_query)
+            b1_msm = refc.msm(g1, z, pk.b_g1_query)
+            b2_msm = refc.msm(g2, z, pk.b_g2_query)
+            h_msm = refc.msm(g1, h_ints, pk.h_query)
+            l_msm = refc.msm(g1, z[ni:], pk.l_query) if z[ni:] else None
+            laps.lap("host_msms")
+        else:
+            g1_sums, b2_sum = _prove_msms(g1, g2, ni, z_can, h_canon, pk)
+            laps.lap("msm_kernels")
+            g1_pts = jac.to_affine_ints(g1, g1_sums)
+            b2_msm = jac.to_affine_ints(g2, b2_sum)
+            a_msm, b1_msm, h_msm = g1_pts[:3]
+            l_msm = g1_pts[3] if len(g1_pts) > 3 else None
+            laps.lap("msm_readback")
 
         # A = alpha + sum z_k u_k + r delta
         A = refc.add(g1, refc.add(g1, pk.vk.alpha_g1, a_msm), refc.scalar_mul(g1, r, pk.delta_g1))

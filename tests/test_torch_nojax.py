@@ -1,6 +1,8 @@
 """The port stands alone: in a fresh interpreter whose import system refuses
 `jax`, `jaxlib` and the JAX package `openzl_tpu`, import every module of
-`openzl_tpu_torch`, run the 1-link Groth16 slice, a Poseidon2 hash, a
+`openzl_tpu_torch` (the walk reaching the gadget layer and
+`crypto/signature/`), sign and verify an Edwards Schnorr signature, run the
+1-link Groth16 slice, a Poseidon2 hash, a
 2^3-leaf Merkle build with path checks, a device-backend KZG commit (held
 against the host backend) and a `DensePoly` NTT product on the CPU, and
 check that none of the blocked modules was loaded."""
@@ -29,8 +31,18 @@ SCRIPT = textwrap.dedent(
     sys.meta_path.insert(0, BlockJax())
 
     import openzl_tpu_torch
-    for mod in pkgutil.walk_packages(openzl_tpu_torch.__path__, "openzl_tpu_torch."):
-        importlib.import_module(mod.name)
+    walked = [mod.name for mod in pkgutil.walk_packages(openzl_tpu_torch.__path__, "openzl_tpu_torch.")]
+    for name in walked:
+        importlib.import_module(name)
+    for name in ("eclair.gadgets", "eclair.measure", "curves.edwards", "crypto.algebra", "crypto.ec_gadget",
+                 "crypto.signature", "crypto.signature.schnorr", "crypto.signature.convert"):
+        assert "openzl_tpu_torch." + name in walked, name
+
+    from openzl_tpu_torch.crypto.signature.schnorr import EdSchnorr
+    from openzl_tpu_torch.curves.edwards import BABY_JUBJUB
+    scheme = EdSchnorr(BABY_JUBJUB)
+    sig = scheme.sign(5, 7, 11)
+    assert scheme.verify(scheme.derive(5), 11, sig) and not scheme.verify(scheme.derive(5), 12, sig)
 
     from openzl_tpu_torch.eclair import circuits
     from openzl_tpu_torch.proof_systems import BN254, Groth16
