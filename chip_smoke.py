@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (`openzl_tpu_torch`) on one GPU.
 
-Drives the port's four paths through the entry points a user calls, the
+Drives the port's five paths through the entry points a user calls, the
 Groth16 prover, Poseidon hashing with the Merkle tree, KZG commitments
-with dense polynomials, and the gadget layer (batched Schnorr verification
-and a Groth16 proof of Schnorr verifications), and checks every
-hand-written kernel on the way.
+with dense polynomials, the gadget layer (batched Schnorr verification
+and a Groth16 proof of Schnorr verifications), and the multi-device layer
+(sharded MSMs, transforms and hashes, and the mesh and staged Groth16
+provers), and checks every hand-written kernel on the way.
 Phases:
 
   1. device   the card's name and power limit; fails without CUDA
@@ -146,14 +147,42 @@ Phases:
               signature: prove, verify, reject a fuzzed message; K3, K4,
               K9 and K3s must launch at 24 limbs. Prints the phase's wall
               time and its record as one JSON line
+  9. mesh     `parallel/` on torch.distributed: K1, K2 and K8 against their
+              plain versions at the sharded transform's shapes (2^15-point
+              levels, its twiddle product, 4-point transforms batched over
+              2^13 columns), K5 and K6 at a rank's 2^14 states of the
+              sharded hash; then 4 gloo ranks sharing the card (their
+              collectives through host memory; `parallel.launch.RankPool`,
+              every run under a deadline) run `sharded_msm` over BN254 G1
+              and G2 at 2^16 - 3 points (full-width scalars, identities,
+              the padding), on a 3-rank sub-mesh (the sequential fold),
+              `sharded_msm_multi` of 3 sets, the four sharded transforms
+              at 2^17, `sharded_poseidon_hash` of 2^16 width-3 states and
+              `Groth16(BN254).prove_assigned(..., mesh=...)` of the
+              512-link slice (domain 2^17), each held against the same
+              call on one device (MSMs as affine points, transforms and
+              digests bit-exact, the proof byte for byte on every rank,
+              verified, a fuzzed input rejected), with the wall ms of each
+              beside one device's and each rank's launches on the mesh
+              prove (every mesh kernel must launch); K9, K3's lifted scan,
+              K3 and K4 against their plain versions on the MSM inputs
+              the last rank's shard gives them in that prove (each MSM's
+              fold and scan, the widest add and doubling a curve); the
+              prove on a 1-rank
+              NCCL mesh, and on an NCCL mesh of one rank a GPU where the
+              machine has two or more; the staged prove
+              (`offload_queries`): byte-identical, a second one verified,
+              its peak device memory beside the unstaged prove's
 
 After the phases, K6's time and bound share beside K5's at each width
 (phases 6 and 6b). Prints a JSON line of per-kernel results (times,
 launches on their path, and the bound: the least time the card could take
 for the same work; the rows of K3, K4, K9 and K3s also carry their
 BLS12-381 launches and runs, with each kernel's registers and spills, the
-rows of K5, K6 and K7 their phase 6b runs and launches by state width, and
-the rows of K1 and `mont_pow` every run with its device time), then,
+rows of K5, K6 and K7 their phase 6b runs and launches by state width,
+the rows of K1 and `mont_pow` every run with its device time, and every
+row each gloo rank's launches on phase 9's mesh prove (K5's and K6's in
+its sharded hash) as `mesh_launches`), then,
 as the last line, {"ok": true, "device": {...}}. Any failure exits non-zero
 with no result. Imports only the port (`openzl_tpu_torch`), never JAX.
 
@@ -613,18 +642,25 @@ def _ec_checks(curve, m, rng, dev, results):
         ("ec_add", "madd", lambda: ec_kernel.ec_add(curve, P, Qa, True), lambda: ec_kernel.ec_add_plain(curve, P, Qa, True)),
         ("ec_dbl", "dbl", lambda: ec_kernel.ec_dbl(curve, P), lambda: ec_kernel.ec_dbl_plain(curve, *P)),
     )
-    n_limbs, ext = curve.base.n_limbs, curve.ext
     for kname, op, kern, plain in cases:
-        got, exp = kern(), plain()
-        ms = _time(kern, 20, dev)
-        pms = _time(plain, 2, dev)
         # rows 0-255 have P = Q: the add kernels also run the doubling there
-        prod, sqr = EC_PRODUCTS[op, ext]
-        dprod, dsqr = EC_PRODUCTS["dbl", ext] if op != "dbl" else (0, 0)
-        words = _mont_words(n_limbs, m * prod + min(256, m) * dprod, m * sqr + min(256, m) * dsqr)
-        coords = (6 + 3) if op != "dbl" else (3 + 3)
-        _check(kname, results, list(got), list(exp), ms, pms, f"{curve.name} {op} (n={m})",
-               (words, coords * ext * n_limbs * m * 4), kern, (f"ec_{op}_kernel", n_limbs // 2, ext))
+        _ec_case(results, curve, kname, op, kern, plain, m, m, min(256, m), f"{curve.name} {op} (n={m})", dev)
+
+
+def _ec_case(results, curve, kname, op, kern, plain, m, live, doubled, label, dev, reps=20):
+    """One K3 (op "add" or "madd") or K4 ("dbl") check at m points, of
+    which `live` rows take the group law and `doubled` of those are P = Q
+    (the add kernels run the doubling there)."""
+    got, exp = kern(), plain()
+    ms = _time(kern, reps, dev)
+    pms = _time(plain, 2, dev)
+    n_limbs, ext = curve.base.n_limbs, curve.ext
+    prod, sqr = EC_PRODUCTS[op, ext]
+    dprod, dsqr = EC_PRODUCTS["dbl", ext] if op != "dbl" else (0, 0)
+    words = _mont_words(n_limbs, live * prod + doubled * dprod, live * sqr + doubled * dsqr)
+    coords = (6 + 3) if op != "dbl" else (3 + 3)
+    _check(kname, results, list(got), list(exp), ms, pms, label,
+           (words, coords * ext * n_limbs * m * 4), kern, (f"ec_{op}_kernel", n_limbs // 2, ext))
 
 
 def phase_kernels_bls(device="cuda", log_m: int = 16, seed: int = 2):
@@ -828,6 +864,26 @@ def _scan_adds(tflag, r: int) -> int:
         f = grid.any(dim=1)
 
 
+def _scan_check(label, results, curve, totals, tflag, dev, reps):
+    """K3's lifted scan against its plain version on one MSM's chunk
+    totals; returns the kernel's output."""
+    from openzl_tpu_torch.ops import ec_kernel
+
+    got = ec_kernel.lifted_scan(curve, totals, tflag)
+    exp = ec_kernel.lifted_scan_plain(curve, totals, tflag)
+    ms = _time(lambda: ec_kernel.lifted_scan(curve, totals, tflag), reps, dev)
+    pms = _time(lambda: ec_kernel.lifted_scan_plain(curve, totals, tflag), 1, dev)
+    R = ec_kernel.SCAN_R
+    l, adds = tflag.shape[0], _scan_adds(tflag, R)
+    prod, sqr = EC_PRODUCTS["add", curve.ext]
+    coord = curve.ext * curve.base.n_limbs * 4
+    _check("ec_lifted_scan", results, list(got), list(exp), ms, pms, f"{label} (l={l}, r={R}, {adds} adds)",
+           (_mont_words(curve.base.n_limbs, adds * prod, adds * sqr), l * (6 * coord + 1)),
+           lambda: ec_kernel.lifted_scan(curve, totals, tflag),
+           [(k, curve.base.n_limbs // 2, curve.ext) for k in PTXAS_KERNELS[2:5]])
+    return got
+
+
 def phase_scan(scans, device="cuda", reps: int = 20, seed: int = 5):
     """Phase 5b: K3's lifted scan against its plain version on the request's
     inputs and at the chunk edge sizes. Returns the kernel results."""
@@ -842,10 +898,7 @@ def phase_scan(scans, device="cuda", reps: int = 20, seed: int = 5):
     R = ec_kernel.SCAN_R
     # the G2 (B2) scan first: its row leads the kernels line
     for curve, totals, tflag in sorted(scans, key=lambda s: -s[0].ext):
-        got = ec_kernel.lifted_scan(curve, totals, tflag)
-        exp = ec_kernel.lifted_scan_plain(curve, totals, tflag)
-        ms = _time(lambda: ec_kernel.lifted_scan(curve, totals, tflag), reps, dev)
-        pms = _time(lambda: ec_kernel.lifted_scan_plain(curve, totals, tflag), 1, dev)
+        got = _scan_check(f"{curve.name} chunk totals of the request", results, curve, totals, tflag, dev, reps)
         # the Hillis-Steele scan through K3 that it replaced: the same group
         # elements, associated otherwise
         old = hillis_steele_scan(curve, totals, tflag)
@@ -857,14 +910,6 @@ def phase_scan(scans, device="cuda", reps: int = 20, seed: int = 5):
         log(f"[scan] {curve.name} l={tflag.shape[0]}: the Hillis-Steele scan through K3 it replaced takes "
             f"{old_ms:.4f} ms" + (f" (device {old_dms:.4f} ms)" if old_dms is not None else "")
             + "; the same group elements")
-        l, adds = tflag.shape[0], _scan_adds(tflag, R)
-        prod, sqr = EC_PRODUCTS["add", curve.ext]
-        coord = curve.ext * curve.base.n_limbs * 4
-        _check("ec_lifted_scan", results, list(got), list(exp), ms, pms,
-               f"{curve.name} chunk totals of the request (l={l}, r={R}, {adds} adds)",
-               (_mont_words(curve.base.n_limbs, adds * prod, adds * sqr), l * (6 * coord + 1)),
-               lambda: ec_kernel.lifted_scan(curve, totals, tflag),
-               [(k, curve.base.n_limbs // 2, curve.ext) for k in PTXAS_KERNELS[2:5]])
     rng = random.Random(seed)
     sizes = sorted({1, 3, R - 1, R, R + 1, 5 * R + 3})
     shipped = ec_kernel.SCAN_NARROW
@@ -1879,6 +1924,491 @@ def phase_gadgets(all_kernels, groth16_kernels, device="cuda", log_ops: int = 16
             "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# 9. mesh: parallel/ on torch.distributed, the mesh and staged provers
+# ---------------------------------------------------------------------------
+
+
+#: gloo ranks sharing the card in phase 9 (R = 4 rows of the sharded
+#: transform; a 3-rank sub-mesh of them runs the sequential fold)
+MESH_RANKS = 4
+
+
+def _mesh_kernels():
+    """The kernels of the mesh path: K1, its exponentiation, K2, K8, K3,
+    K4, K9 and K3's scan."""
+    from openzl_tpu_torch.ops import ec_kernel, ntt_kernel
+
+    return [ntt_kernel.K1, ntt_kernel.K1P, ntt_kernel.K2, ntt_kernel.K8, ec_kernel.K3, ec_kernel.K4,
+            ec_kernel.K9, ec_kernel.K3S]
+
+
+def _sync_ms(fn):
+    """(fn(), wall ms), between two device syncs where there is a card."""
+    import torch
+
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _mesh_points(curve, n, seed, device):
+    """(scalars, points): n full-width canonical scalars (0, 1 and r - 1
+    first) and n normalized points, random picks of 64 random multiples of
+    the generator (the port's fixed-base MSM) with every 97th the
+    identity; the same from the same seed on every rank and in the parent."""
+    import numpy as np
+    import torch
+
+    from openzl_tpu_torch.curves import jacobian as jac
+    from openzl_tpu_torch.fields import limb
+    from openzl_tpu_torch.ops import msm
+
+    rng = random.Random(seed)
+    ks = [rng.randrange(1, curve.scalar.modulus) for _ in range(64)]
+    base = jac.normalize(curve, msm.fixed_base_msm(curve, limb.tensor(limb.pack(curve.scalar, ks), device)))
+    pts = jac.take(base, torch.as_tensor(np.random.default_rng(seed).integers(0, 64, n), device=device))
+    ident = torch.zeros(n, dtype=torch.bool, device=device)
+    ident[::97] = True
+    pts = jac.select(ident, jac.identity(curve, (n,), device), pts)
+    return _rand_field(curve.scalar, n, rng, device), pts
+
+
+def _mesh_msm_task(n_ranks, group, log_m, seed, sets, device):
+    """Rank task: sharded_msm (sets = 0) or sharded_msm_multi of `sets`
+    point sets sharing the scalars, at 2^log_m - 3 points; (affine result,
+    warm wall ms)."""
+    from openzl_tpu_torch.curves import jacobian as jac
+    from openzl_tpu_torch.parallel import local_mesh, sharded_msm, sharded_msm_multi
+    from openzl_tpu_torch.proof_systems import BN254
+
+    mesh = local_mesh(n_ranks, device=device)
+    if mesh is None:
+        return None
+    curve = getattr(BN254, group)
+    n = (1 << log_m) - 3
+    scal, pts = _mesh_points(curve, n, seed, mesh.device)
+    more = [_mesh_points(curve, n, seed + 1 + s, mesh.device)[1] for s in range(sets - 1)]
+
+    def fn():
+        return sharded_msm_multi(curve, mesh, scal, [pts, *more]) if sets else sharded_msm(curve, mesh, scal, pts)
+
+    fn()
+    out, ms = _sync_ms(fn)
+    aff = [jac.to_affine_ints(curve, o) for o in out] if sets else jac.to_affine_ints(curve, out)
+    return aff, ms
+
+
+def _mesh_transform_task(n_ranks, log_n, seed, device):
+    """Rank task: the four sharded transforms of 2^log_n random canonical
+    BN254 Fr elements: {name: (digest, warm wall ms)}."""
+    from openzl_tpu_torch import parallel
+    from openzl_tpu_torch.fields.spec import BN254_FR
+    from openzl_tpu_torch.parallel import local_mesh
+
+    mesh = local_mesh(n_ranks, device=device)
+    if mesh is None:
+        return None
+    x = _rand_field(BN254_FR, 1 << log_n, random.Random(seed), mesh.device)
+    out = {}
+    for name in ("ntt", "intt", "coset_ntt", "coset_intt"):
+        fn = getattr(parallel, f"sharded_{name}")
+        fn(BN254_FR, mesh, x)
+        y, ms = _sync_ms(lambda: fn(BN254_FR, mesh, x))
+        out[name] = (_digest(y), ms)
+    return out
+
+
+def _mesh_poseidon_task(n_ranks, log_b, seed, device):
+    """Rank task: sharded_poseidon_hash at width 3 of 2^log_b states:
+    (digest, warm wall ms, K5 and K6 launches of the timed call)."""
+    from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
+    from openzl_tpu_torch.fields.spec import BN254_FR
+    from openzl_tpu_torch.ops import poseidon_kernel
+    from openzl_tpu_torch.parallel import local_mesh, sharded_poseidon_hash
+
+    mesh = local_mesh(n_ranks, device=device)
+    if mesh is None:
+        return None
+    perm = Poseidon.create(BN254_FR, 2, device=mesh.device)
+    x = _rand_field(BN254_FR, 2 << log_b, random.Random(seed), mesh.device)
+    x = x.reshape(BN254_FR.n_limbs, 2, 1 << log_b)
+    sharded_poseidon_hash(perm, mesh, x)
+    for k in (poseidon_kernel.K5, poseidon_kernel.K6):
+        k.reset()
+    y, ms = _sync_ms(lambda: sharded_poseidon_hash(perm, mesh, x))
+    return _digest(y), ms, {k.name: k.launches for k in (poseidon_kernel.K5, poseidon_kernel.K6)}
+
+
+def _mesh_circuit(g16, chain, seed):
+    """The 512-link Poseidon chain of phase 5: (circuit, key from
+    random.Random(seed + 1), the assignment's limbs, the public digest)."""
+    from openzl_tpu_torch.eclair import circuits
+
+    params = circuits.poseidon_params(g16.fr)
+    witness, digest = circuits.chain_inputs(params, chain, random.Random(seed))
+    cs = circuits.poseidon_chain(g16.context_compiler(), params, chain)
+    t0 = time.perf_counter()
+    pk = g16.compile(cs, random.Random(seed + 1))
+    compile_s = time.perf_counter() - t0
+    z = g16.witness_calculator(cs).evaluate_limbs([digest], witness)
+    return cs, pk, z, digest, compile_s
+
+
+def _record_msm_jobs(fn):
+    """Run fn with `ops.msm.msm_sets` recording its jobs; returns [(curve
+    name, [(scalars, (x, y, z))] as numpy arrays, window bits, bits)] of
+    each call, in call order."""
+    from openzl_tpu_torch.ops import msm
+
+    real, seen = msm.msm_sets, []
+
+    def recording(curve, jobs, window_bits=None, n_bits=None):
+        seen.append((curve.name, [(s.cpu().numpy(), tuple(v.cpu().numpy() for v in p)) for s, p in jobs],
+                     window_bits, n_bits))
+        return real(curve, jobs, window_bits, n_bits)
+
+    msm.msm_sets = recording
+    try:
+        fn()
+    finally:
+        msm.msm_sets = real
+    return seen
+
+
+def _mesh_prove_task(n_ranks, chain, seed, device, record=False):
+    """Rank task: compile the chain's key (the same seeded rng on every
+    rank), prove once to warm up, then prove again with the launch counters
+    zeroed before and read after; verify, and a fuzzed input must fail.
+    With `record`, every rank proves once more and the last one returns
+    the MSM jobs of its shard (`_record_msm_jobs`) as `jobs`."""
+    from openzl_tpu_torch.parallel import local_mesh
+    from openzl_tpu_torch.proof_systems import BN254, Groth16
+
+    mesh = local_mesh(n_ranks, device=device)
+    if mesh is None:
+        return None
+    g16 = Groth16(BN254, mesh.device)
+    _, pk, z, digest, compile_s = _mesh_circuit(g16, chain, seed)
+    g16.prove_assigned(pk, z, random.Random(seed + 2), mesh=mesh)
+    kernels = _mesh_kernels()
+    for k in kernels:
+        k.reset()
+    proof, ms = _sync_ms(lambda: g16.prove_assigned(pk, z, random.Random(seed + 2), mesh=mesh))
+    launches = {k.name: k.launches for k in kernels}
+    laps = g16.laps["prove"]
+    jobs = None
+    if record:
+        again = lambda: g16.prove_assigned(pk, z, random.Random(seed + 2), mesh=mesh)  # noqa: E731
+        if mesh.rank == mesh.size - 1:
+            jobs = _record_msm_jobs(again)
+        else:
+            again()
+    return dict(proof=proof.to_bytes(BN254), verify=g16.verify(pk.vk, [digest], proof),
+                fuzzed=g16.verify(pk.vk, [(digest + 1) % BN254.r], proof), launches=launches, ms=ms,
+                compile_s=compile_s, laps=laps, backend=mesh.backend, size=mesh.size, jobs=jobs)
+
+
+def _mesh_shard_checks(results, jobs, dev, reps: int = 10):
+    """K9, K3's lifted scan, K3 and K4 against their plain versions on the
+    MSM jobs one rank's shard gave the bucket pipeline in the mesh prove
+    (`_record_msm_jobs`): each MSM's fold and the scan of its chunk totals,
+    then per curve and operation the widest K3 and K4 call of its
+    pipeline, with the rows that take the group law counted from the data."""
+    import torch
+
+    from openzl_tpu_torch.curves import jacobian as jac
+    from openzl_tpu_torch.ops import ec_kernel, msm
+    from openzl_tpu_torch.proof_systems import BN254
+
+    curves = {c.name: c for c in (BN254.g1, BN254.g2)}
+    widest = {}
+    real_add, real_dbl = ec_kernel.ec_add, ec_kernel.ec_dbl
+
+    def keep(curve, op, *coords):
+        n = coords[0][2].numel() // (curve.base.n_limbs * curve.ext)
+        if n > widest.get((curve.name, op), (0,))[0]:
+            widest[curve.name, op] = (n, curve, *(tuple(t.clone() for t in c) for c in coords))
+
+    def add(curve, P, Q, mixed=False):
+        keep(curve, "madd" if mixed else "add", P, Q)
+        return real_add(curve, P, Q, mixed)
+
+    def dbl(curve, P):
+        keep(curve, "dbl", P)
+        return real_dbl(curve, P)
+
+    for name, raw, wb, nb in jobs:
+        curve = curves[name]
+        tjobs = [(torch.as_tensor(s, device=dev), jac.JPoint(*(torch.as_tensor(v, device=dev) for v in p)))
+                 for s, p in raw]
+        tag = f"{name} MSM of one rank's shard ({len(raw)} x {tjobs[0][0].shape[1]} points)"
+        pts, keys, pidx, r, c, W = msm.fold_inputs(curve, tjobs, wb, nb)
+        S = len(raw)
+        _fold_check(tag, results, curve, (pts, keys, pidx, r, c, S * W), dev, reps)
+        totals, tflag = ec_kernel.fold_madd(curve, pts, keys, pidx, r, (S * W << c) + 1)[:2]
+        _scan_check(f"{tag}, its chunk totals", results, curve, totals, tflag, dev, reps)
+        ec_kernel.ec_add, ec_kernel.ec_dbl = add, dbl
+        try:
+            msm.msm_sets(curve, tjobs, wb, nb)
+        finally:
+            ec_kernel.ec_add, ec_kernel.ec_dbl = real_add, real_dbl
+    for (name, op), (n, curve, P, *Q) in sorted(widest.items()):
+        F = jac.field_ops(curve)
+        live = ~F.is_zero(P[2])
+        doubled = 0
+        if Q:
+            live = live & ~F.is_zero(Q[0][2])
+            a, b = jac.normalize(curve, jac.JPoint(*P)), jac.normalize(curve, jac.JPoint(*Q[0]))
+            same = [(u == v).flatten(0, F.value_ndim - 1).all(0) for u, v in ((a.x, b.x), (a.y, b.y))]
+            doubled = int((live & same[0] & same[1]).sum())
+        mixed = op == "madd"
+        if Q:
+            kern = lambda P=P, Q=Q[0], mixed=mixed: ec_kernel.ec_add(curve, P, Q, mixed)  # noqa: E731
+            plain = lambda P=P, Q=Q[0], mixed=mixed: ec_kernel.ec_add_plain(curve, P, Q, mixed)  # noqa: E731
+        else:
+            kern = lambda P=P: ec_kernel.ec_dbl(curve, P)  # noqa: E731
+            plain = lambda P=P: ec_kernel.ec_dbl_plain(curve, *P)  # noqa: E731
+        nlive = int(live.sum())
+        _ec_case(results, curve, "ec_dbl" if op == "dbl" else "ec_add", op, kern, plain, n, nlive, doubled,
+                 f"{name} {op} (n={n}, {nlive} live, {doubled} doubled): the widest of one rank's MSMs", dev, reps)
+
+
+def _mesh_checks(results, dev, rng):
+    """K1, K2 and K8 against their plain versions at the shapes the sharded
+    transform of 2^17 points over 4 ranks gives them: the 2^15-point
+    sub-transform's levels (with the coset and 1/N scales), its twiddle
+    product, and the 4-point sub-transforms batched over 2^13 columns; K5
+    and K6 at a rank's 2^14 states of the sharded hash of 2^16."""
+    from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
+    from openzl_tpu_torch.fields.spec import BN254_FR
+    from openzl_tpu_torch.ops import ntt, ntt_kernel, poseidon_kernel
+    from openzl_tpu_torch.proof_systems import BN254
+
+    spec = BN254.g1.scalar
+    _level_checks(spec, 15, 1, rng, dev, results, scales=True)
+    a, b = _rand_field(spec, 1 << 15, rng, dev), _rand_field(spec, 1 << 15, rng, dev)
+    ms = _time(lambda: ntt_kernel.mont_mul(spec, a, b), 50, dev)
+    pms = _time(lambda: ntt_kernel.mont_mul_plain(spec, a, b), 3, dev)
+    _check("mont_mul", results, [ntt_kernel.mont_mul(spec, a, b)], [ntt_kernel.mont_mul_plain(spec, a, b)], ms, pms,
+           "bn254_fr mul (n=32768, the sharded transform's twiddle)",
+           (_mont_words(16, 1 << 15), 3 * (1 << 15) * 16 * 4), lambda: ntt_kernel.mont_mul(spec, a, b))
+    N, batch = 4, 1 << 13
+    for inverse in (False, True):
+        rev, table, n_inv = ntt._plan(spec, 2, inverse, dev)
+        x = _rand_field(spec, N * batch, rng, dev).reshape(spec.n_limbs, N, batch).contiguous()
+
+        def kern(x=x, table=table, rev=rev, n_inv=n_inv, inverse=inverse):
+            return ntt_kernel.transform(spec, x, table, rev, n_inv, inverse)
+
+        products = batch * (N // 2 * 2 - (N - 1) + (N if inverse else 0))
+        exp = ntt_kernel.transform_plain(spec, x, table, rev, n_inv, inverse)
+        pms = _time(lambda: ntt_kernel.transform_plain(spec, x, table, rev, n_inv, inverse), 3, dev)
+        _check("butterfly", results, [kern()], [exp], _time(kern, 50, dev), pms,
+               f"{spec.name} transform 2^2 ({'inverse' if inverse else 'forward'}, batch {batch}, the sharded "
+               "transform's 4-point sub-transforms)",
+               (_mont_words(spec.n_limbs, products), 2 * batch * N * spec.n_limbs * 4), kern,
+               ("ntt_transform_kernel", (8,)))
+    B = 1 << 14
+    perm = Poseidon.create(BN254_FR, 2, device=dev)
+    x = _rand_states(BN254_FR, B, rng, dev)
+    for name, kern, plain in (
+        ("poseidon_permute", lambda: poseidon_kernel.permute(perm, x), lambda: poseidon_kernel.permute_plain(perm, x)),
+        ("poseidon_permute_opt", lambda: poseidon_kernel.permute_optimized(perm, x),
+         lambda: poseidon_kernel.permute_optimized_plain(perm, x)),
+    ):
+        words = _perm_words(name, perm)
+        _check(name, results, [kern()], [plain()], _time(kern, 20, dev), _time(plain, 1, dev),
+               f"bn254_fr width 3 (B={B}, a rank's share of the sharded hash of 2^16)",
+               (B * words, 2 * x.numel() * 4), kern, WIDTH3_PTXAS[name])
+
+
+def phase_mesh(device="cuda", log_m: int = 16, log_n: int = 17, log_b: int = 16,
+               chain: int = 512, seed: int = 13, timeout: float = 420.0):
+    """Phase 9: `parallel/` on torch.distributed. `MESH_RANKS` gloo ranks
+    share the card (their collectives through host memory) and run the sharded
+    MSMs (G1 and G2 at 2^log_m - 3 points, a 3-rank sub-mesh, three sets),
+    the four sharded transforms at 2^log_n, the sharded Poseidon hash of
+    2^log_b states and `Groth16(BN254).prove_assigned(..., mesh=...)` of
+    the `chain`-link slice; each is held against the same call on one
+    device here (MSMs as affine points, transforms and digests bit-exact,
+    proofs byte for byte on every rank), and the last rank's MSM inputs in
+    the mesh prove are held against the plain kernels here
+    (`_mesh_shard_checks`). Then the prove on a 1-rank NCCL
+    mesh, on an NCCL mesh of one rank a GPU where there are two GPUs or
+    more, and the staged prove (`offload_queries`). Returns (the kernel
+    checks, each rank's launches on the mesh prove, the K5/K6 launches of
+    the sharded hash, the phase's record)."""
+    import tempfile
+
+    import torch
+
+    from openzl_tpu_torch.crypto.poseidon.permutation import Poseidon
+    from openzl_tpu_torch.curves import jacobian as jac
+    from openzl_tpu_torch.fields.spec import BN254_FR
+    from openzl_tpu_torch.ops import msm, ntt
+    from openzl_tpu_torch.parallel.launch import RankPool
+    from openzl_tpu_torch.proof_systems import BN254, Groth16
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rng = random.Random(seed)
+    results, record = {}, {}
+    if cuda:
+        _mesh_checks(results, dev, rng)
+    where = "on one card, over host memory" if cuda else "on the CPU"
+    store = tempfile.mkdtemp(prefix="ozl_mesh_")
+
+    def one(fn):
+        fn()
+        return _sync_ms(fn)
+
+    def compare(tag, got, want, ms_mesh, ms_one, backend="gloo"):
+        """Each member rank's result equals one device's; the ranks' wall
+        ms beside one device's, labelled with the backend."""
+        bad = [r for r, g in enumerate(got) if g is not None and g != want]
+        k = sum(g is not None for g in got)
+        label = f"gloo, {k} ranks {where}" if backend == "gloo" else backend
+        log(f"[mesh] {tag}: {ms_mesh} ms ({label}) against {ms_one:.1f} ms on one device; "
+            + ("equal on every rank" if not bad else f"DIFFERS on ranks {bad}"))
+        if bad:
+            fail(f"[mesh] {tag} differs from one device on ranks {bad}")
+        record[tag] = {"mesh_ms": ms_mesh, "one_device_ms": ms_one}
+
+    ranks = MESH_RANKS
+    t0 = time.perf_counter()
+    with RankPool(ranks, "gloo", store, devices=[str(dev)] * ranks, timeout=timeout) as pool:
+        log(f"[mesh] {ranks} gloo ranks on {dev} up in {time.perf_counter() - t0:.1f} s")
+        n = (1 << log_m) - 3
+        for group, sub in (("g1", ranks), ("g2", ranks), ("g1", ranks - 1)):
+            curve = getattr(BN254, group)
+            scal, pts = _mesh_points(curve, n, seed, dev)
+            want, ms_one = one(lambda: msm.msm(curve, scal, pts))
+            got = pool.run(_mesh_msm_task, sub, group, log_m, seed, 0, str(dev))
+            compare(f"sharded_msm {curve.name} n={n} over {sub} ranks", [g and g[0] for g in got],
+                    jac.to_affine_ints(curve, want), [round(g[1], 1) for g in got if g], ms_one)
+        scal, first = _mesh_points(BN254.g1, n, seed, dev)
+        sets = [first] + [_mesh_points(BN254.g1, n, seed + s, dev)[1] for s in (1, 2)]
+        want, ms_one = one(lambda: msm.msm_multi(BN254.g1, scal, sets))
+        got = pool.run(_mesh_msm_task, ranks, "g1", log_m, seed, 3, str(dev))
+        compare(f"sharded_msm_multi bn254_g1 3 sets n={n}", [g and g[0] for g in got],
+                [jac.to_affine_ints(BN254.g1, w) for w in want], [round(g[1], 1) for g in got], ms_one)
+
+        x = _rand_field(BN254_FR, 1 << log_n, random.Random(seed), dev)
+        got = pool.run(_mesh_transform_task, ranks, log_n, seed, str(dev))
+        for name in ("ntt", "intt", "coset_ntt", "coset_intt"):
+            fn = getattr(ntt, name)
+            y, ms_one = one(lambda: fn(BN254_FR, x))
+            compare(f"sharded_{name} 2^{log_n}", [g[name][0] for g in got], _digest(y),
+                    [round(g[name][1], 2) for g in got], ms_one)
+
+        perm = Poseidon.create(BN254_FR, 2, device=dev)
+        states = _rand_field(BN254_FR, 2 << log_b, random.Random(seed), dev).reshape(BN254_FR.n_limbs, 2, 1 << log_b)
+        y, ms_one = one(lambda: perm.hash(states))
+        got = pool.run(_mesh_poseidon_task, ranks, log_b, seed, str(dev))
+        compare(f"sharded_poseidon_hash width 3, 2^{log_b} states", [g[0] for g in got], _digest(y),
+                [round(g[1], 2) for g in got], ms_one)
+        hash_launches = [g[2] for g in got]
+        log(f"[mesh] each rank's K5 / K6 launches in the sharded hash: {hash_launches}")
+        if cuda and not all(h["poseidon_permute"] + h["poseidon_permute_opt"] for h in hash_launches):
+            fail("[mesh] the sharded hash launched no Poseidon kernel on some rank")
+
+        g16 = Groth16(BN254, dev)
+        cs, pk, z, digest, compile_s = _mesh_circuit(g16, chain, seed)
+        proof, ms_one = one(lambda: g16.prove_assigned(pk, z, random.Random(seed + 2)))
+        want = proof.to_bytes(BN254)
+        if not g16.verify(pk.vk, [digest], proof):
+            fail("[mesh] the one-device proof did not verify")
+        log(f"[mesh] {chain} links, {cs.num_constraints} constraints, domain 2^{pk.domain_log2}: compile "
+            f"{compile_s:.1f} s, one-device prove {ms_one:.1f} ms")
+        got = pool.run(_mesh_prove_task, ranks, chain, seed, str(dev), True)
+    mesh_launches = [g["launches"] for g in got]
+    jobs = got[-1].pop("jobs")
+    log(f"[mesh] the last rank's MSM jobs in the mesh prove: " + "; ".join(
+        f"{name} {len(raw)} x {raw[0][0].shape[1]} points" for name, raw, _, _ in jobs))
+    _mesh_shard_checks(results, jobs, dev)
+    del jobs
+
+    def check_prove(tag, got, backend="gloo", skip=()):
+        """Every rank's proof verifies, rejects a fuzzed input, equals the
+        one-device bytes, and launched every mesh kernel but `skip`."""
+        for r, g in enumerate(got):
+            log(f"[mesh] {tag} rank {r}: prove {g['ms']:.1f} ms (compile {g['compile_s']:.1f} s), verify "
+                f"{g['verify']}, fuzzed input accepted {g['fuzzed']}; launches {g['launches']}; laps "
+                + ", ".join(f"{k} {v:.1f} ms" for k, v in g["laps"]))
+            if not g["verify"] or g["fuzzed"]:
+                fail(f"[mesh] {tag} rank {r}: the proof did not verify, or a fuzzed input passed")
+            missing = [k for k, v in g["launches"].items() if not v and k not in skip]
+            if cuda and missing:
+                fail(f"[mesh] {tag} rank {r}: kernels never launched on the mesh prove: {missing}")
+        compare(f"Groth16 prove {tag}", [g["proof"] for g in got], want, [round(g["ms"], 1) for g in got], ms_one,
+                backend)
+
+    check_prove(f"{ranks} gloo ranks", got)
+    if cuda:
+        with RankPool(1, "nccl", store, devices=[str(dev)], timeout=timeout) as pool:
+            got = pool.run(_mesh_prove_task, 1, chain, seed, str(dev))
+        log("[mesh] a 1-rank NCCL mesh: " + json.dumps({k: got[0][k] for k in ("backend", "size", "ms")}))
+        # one rank: R = 1, so no 4-point sub-transforms and no K8
+        check_prove("1 NCCL rank", got, "NCCL, 1 rank on one card", skip=("butterfly",))
+        record["nccl_1_launches"] = got[0]["launches"]
+        gpus = torch.cuda.device_count()
+        if gpus >= 2:
+            k = min(4, gpus)
+            with RankPool(k, "nccl", store, devices=[f"cuda:{i}" for i in range(k)], timeout=timeout) as pool:
+                got = pool.run(_mesh_prove_task, k, chain, seed, "cuda")
+            check_prove(f"{k} NCCL ranks", got, f"NCCL, {k} ranks, one a GPU")
+            record["nccl_gpus"] = k
+        else:
+            log(f"[mesh] NCCL across GPUs: skipped, this machine has {gpus} GPU")
+            record["nccl_gpus"] = None
+
+    # the staged prover: the queries on the host, one staged per MSM
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    _, ms_unstaged = _sync_ms(lambda: g16.prove_assigned(pk, z, random.Random(seed + 2)))
+    peak_unstaged = torch.cuda.max_memory_allocated() if cuda else 0
+    staged = pk.offload_queries()
+    del pk
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base_staged = torch.cuda.memory_allocated() if cuda else 0
+    srng = random.Random(seed + 2)
+    proof, ms_staged = _sync_ms(lambda: g16.prove_assigned(staged, z, srng))
+    peak_staged = torch.cuda.max_memory_allocated() if cuda else 0
+    if not staged.staged or proof.to_bytes(BN254) != want:
+        fail("[mesh] the staged proof differs from the unstaged one")
+    again = g16.prove_assigned(staged, z, srng)
+    if not g16.verify(staged.vk, [digest], again) or g16.verify(staged.vk, [(digest + 1) % BN254.r], again):
+        fail("[mesh] the second staged proof did not verify, or a fuzzed input passed")
+    log(f"[mesh] staged prove: {ms_staged:.1f} ms, peak device memory {peak_staged / 2**20:.1f} MiB "
+        f"({base_staged / 2**20:.1f} MiB held before it); unstaged {ms_unstaged:.1f} ms, peak "
+        f"{peak_unstaged / 2**20:.1f} MiB ({base / 2**20:.1f} MiB held before it, the key's tables among them); "
+        "the staged proof byte-identical, a second staged proof verified")
+    record["staged"] = {"ms": ms_staged, "peak_mib": peak_staged / 2**20, "held_mib": base_staged / 2**20}
+    record["unstaged"] = {"ms": ms_unstaged, "peak_mib": peak_unstaged / 2**20, "held_mib": base / 2**20}
+    record["wall_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase 9 wall {record['wall_s']:.1f} s")
+    return results, mesh_launches, hash_launches, record
+
+
 def transforms_of(root: pathlib.Path, reps: int = 20, seed: int = 7) -> None:
     """Phase 7's whole four-step transforms alone (`_fourstep_runs`, BN254
     Fr at 2^17, batch 1 and 3, and 2^20) of the port in checkout `root`,
@@ -1956,6 +2486,9 @@ def main() -> None:
     _merge(bls, {k: v for k, v in bls_kzg.items() if k in EC_KERNELS})
     gadgets = phase_gadgets(kernels, groth16_kernels, signatures=args.signatures)
     log("[gadgets] " + json.dumps(gadgets))
+    mesh_results, mesh_launches, mesh_hash_launches, mesh_record = phase_mesh(chain=args.chain)
+    _merge(results, mesh_results)
+    log("[mesh] " + json.dumps(mesh_record))
 
     # bound: the larger of the word products over the card's 32-bit integer
     # multiply rate (64 multiply issues per clock per SM, two per 32x32->64
@@ -2062,6 +2595,12 @@ def main() -> None:
             # of the default Groth16's Jubjub proof (d)
             row["gadgets_proof_launches"] = {"bn254": gadgets["proof"]["launches"][k.name],
                                              "bls12_381": gadgets["default_proof"]["launches"][k.name]}
+        # phase 9: each gloo rank's launches on the mesh prove (K5 and K6:
+        # in the sharded hash)
+        row["mesh_launches"] = [ml.get(k.name, 0) + hl.get(k.name, 0)
+                                for ml, hl in zip(mesh_launches, mesh_hash_launches)]
+        # phase 9's checks at the shapes the mesh path gives the kernel
+        row["mesh_runs"] = [run_row(r) for r in mesh_results.get(k.name, [])]
         if k.name == "poseidon2_permute":
             # the bound that also counts the linear layers' least additions
             row["bound_with_additions_ms"] = bound(K7_LINEAR["bn254_fr", 3][2])[0]

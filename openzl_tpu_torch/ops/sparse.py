@@ -93,6 +93,11 @@ class SparseFieldMatrix:
             )
         return self._dev[key]
 
+    def drop_device(self) -> None:
+        """Free the cached device buffers (the staged prover's discipline:
+        one matrix on the device at a time); the host arrays remain."""
+        self._dev.clear()
+
     def matvec(self, z_mont: torch.Tensor) -> torch.Tensor:
         """(self @ z) mod p: z_mont (n_limbs, n_cols) Montgomery ->
         (n_limbs, n_rows) Montgomery, on z's device."""

@@ -44,6 +44,7 @@ from ..fields.spec import FieldSpec
 from ..ops import ntt as nttmod
 from ..ops.msm import fixed_base_msm, msm, msm_sets
 from ..ops.sparse import SparseFieldMatrix
+from ..parallel import ops as pops
 from ..ref import curve as refc
 from ..ref import pairing as refpair
 from ..ref.pairing import BLS12_381, BN254, PairingSpec
@@ -152,12 +153,35 @@ class ProvingKey:
 
     @property
     def device(self) -> Optional[torch.device]:
-        """The query tables' device; None for a host-form key."""
-        return None if self.host else self.a_query.x.device
+        """The query tables' device; None for a host-form or staged key."""
+        return None if self.host or self.staged else self.a_query.x.device
+
+    @property
+    def staged(self) -> bool:
+        """Queries offloaded to host numpy (`offload_queries`): the prover
+        stages one query at a time onto the `Groth16`'s device."""
+        return not self.host and isinstance(self.a_query.x, np.ndarray)
+
+    def offload_queries(self) -> "ProvingKey":
+        """Copy with every query table moved to host numpy: the prover then
+        stages one query on the device per MSM and frees it after its
+        readback (`_prove_msms_staged`), and each QAP matrix's device copy
+        after its matvec, so a key that does not fit beside the prover's
+        working set still proves on one device. The device tables are
+        freed when the original key goes: `pk = pk.offload_queries()`."""
+        if self.host or self.staged:
+            return self
+        host = {k: JPoint(*(v.detach().cpu().numpy().copy() for v in getattr(self, k))) for k in _QUERIES}
+        return dataclasses.replace(self, **host)
 
     def _query_affine(self, query, curve):
-        """Affine int list of one query table, host or device form."""
-        return list(query) if self.host else jac.to_affine_ints(curve, query)
+        """Affine int list of one query table: host form as it is, device
+        form by one batched inversion on its device, staged on the host."""
+        if self.host:
+            return list(query)
+        if self.staged:
+            query = JPoint(*(limb.tensor(v) for v in query))
+        return jac.to_affine_ints(curve, query)
 
     def to_bytes(self, compressed: bool = False) -> bytes:
         """ark-groth16 ProvingKey member order (vk, beta_g1, delta_g1,
@@ -207,7 +231,8 @@ class ProvingKey:
         pairing of the same name: device-form queries through `np.asarray`
         of their limb arrays, host-form ones through their affine int
         lists, onto `device`. With `backend="host"` a host-form key stays
-        in host form (its affine lists, `host=True`)."""
+        in host form (its affine lists, `host=True`); a staged key (its
+        queries offloaded to numpy) stays staged, its queries on the host."""
         if backend not in ("host", "device"):
             raise ValueError(f"backend must be 'host' or 'device', not {backend!r}")
         pairing = refpair.PAIRINGS[pk.pairing.name]
@@ -220,6 +245,8 @@ class ProvingKey:
             q = getattr(pk, k)
             if host:
                 queries[k] = list(q)
+            elif getattr(pk, "staged", False):
+                queries[k] = JPoint(*(np.ascontiguousarray(v, dtype=np.int32) for v in q))
             elif pk.host:
                 queries[k] = jac.from_affine_ints(curve, list(q), device)
             else:
@@ -343,6 +370,42 @@ def _prove_msms(g1, g2, ni, z_can, h_canon, pk):
     if z_can.shape[1] > ni:
         jobs.append((z_can[:, ni:], pk.l_query))
     return msm_sets(g1, jobs), msm(g2, z_can, pk.b_g2_query)
+
+
+def _prove_msms_sharded(mesh, g1, g2, ni, z_can, h_canon, pk):
+    """The mesh form of `_prove_msms`: the a/b1/l multi-set MSM (the L
+    query padded in front by ni identities, so the three sets share z), the
+    h MSM and the G2 b2 MSM each shard their point axis over the mesh
+    (`parallel.ops`). Returns the G1 sums stacked as `_prove_msms` stacks
+    them, and the G2 sum, replicated on every rank."""
+    sets = [pk.a_query, pk.b_g1_query]
+    if z_can.shape[1] > ni:
+        sets.append(jac.concat([jac.identity(g1, (ni,), pk.device), pk.l_query]))
+    outs = pops.sharded_msm_multi(g1, mesh, z_can, sets)
+    h = pops.sharded_msm(g1, mesh, h_canon, pk.h_query)
+    b2 = pops.sharded_msm(g2, mesh, z_can, pk.b_g2_query)
+    g1s = [outs[0], outs[1], h] + outs[2:]
+    return JPoint(*(torch.stack([p[i] for p in g1s], dim=-1) for i in range(3))), b2
+
+
+def _prove_msms_staged(g1, g2, ni, z_can, h_canon, pk, laps):
+    """The staged form of `_prove_msms`: five MSMs, each staging ONE
+    host-offloaded query onto z's device and freeing it after its readback,
+    so the device holds one query (and the MSM's transients) at a time
+    instead of the whole key. Returns the affine (a, b1, b2, h, l) sums."""
+    dev = z_can.device
+
+    def stage(curve, scalars, query, name):
+        pt = jac.to_affine_ints(curve, msm(curve, scalars, JPoint(*(limb.tensor(v, dev) for v in query))))
+        laps.lap(f"msm_{name}")  # the readback synchronized; the staged query is freed on return
+        return pt
+
+    a = stage(g1, z_can, pk.a_query, "a")
+    b1 = stage(g1, z_can, pk.b_g1_query, "b1")
+    l = stage(g1, z_can[:, ni:], pk.l_query, "l") if z_can.shape[1] > ni else None
+    h = stage(g1, h_canon, pk.h_query, "h")
+    b2 = stage(g2, z_can, pk.b_g2_query, "b2")
+    return a, b1, b2, h, l
 
 
 class Laps:
@@ -542,33 +605,46 @@ class Groth16:
 
         return WitnessCalculator(cs)
 
-    def prove(self, pk: ProvingKey, cs: R1CS, rng, prepared: Optional[PreparedCircuit] = None) -> Proof:
+    def prove(self, pk: ProvingKey, cs: R1CS, rng, prepared: Optional[PreparedCircuit] = None,
+              mesh=None) -> Proof:
+        """Prove `cs`'s assignment. With a `parallel` mesh (every rank of it
+        calls this with the same key, circuit and seeded rng) the H
+        polynomial's transforms and the MSMs are sharded over the mesh, and
+        every rank returns the same proof."""
         z = cs.assignment()
         if pk.host:
-            return self._prove_z(pk, z, rng, None, cs=cs)
-        return self._prove_z(pk, z, rng, prepared or pk.prepared or self.prepare(cs))
+            return self._prove_z(pk, z, rng, None, cs=cs, mesh=mesh)
+        return self._prove_z(pk, z, rng, prepared or pk.prepared or self.prepare(cs), mesh=mesh)
 
-    def prove_assigned(self, pk: ProvingKey, z, rng, prepared: Optional[PreparedCircuit] = None) -> Proof:
+    def prove_assigned(self, pk: ProvingKey, z, rng, prepared: Optional[PreparedCircuit] = None,
+                       mesh=None) -> Proof:
         """Prove from a full assignment: the planar (n_limbs, num_vars)
         canonical limb array of `WitnessCalculator.evaluate_limbs`, or a
-        sequence of ints. Needs `prepared` or a key from `compile`."""
+        sequence of ints. Needs `prepared` or a key from `compile`; `mesh`
+        as in `prove`."""
         if pk.host:
             raise ValueError("a host-form key proves through prove(pk, cs, rng), or lift it with device_key")
         prepared = prepared or pk.prepared
         if prepared is None:
             raise ValueError("prove_assigned needs the prepared matrices (Groth16.prepare)")
-        return self._prove_z(pk, z, rng, prepared)
+        return self._prove_z(pk, z, rng, prepared, mesh=mesh)
 
-    def _prove_z(self, pk: ProvingKey, z, rng, prepared: Optional[PreparedCircuit], cs: Optional[R1CS] = None) -> Proof:
+    def _prove_z(self, pk: ProvingKey, z, rng, prepared: Optional[PreparedCircuit], cs: Optional[R1CS] = None,
+                 mesh=None) -> Proof:
         """Prove from a full assignment `z`; a host-form key takes it as
         ints with the circuit `cs`, a device-form key as limbs or ints with
-        the `prepared` matrices."""
+        the `prepared` matrices. A staged key (`offload_queries`) proves on
+        this `Groth16`'s device one matrix and one query at a time."""
         fr, p = self.fr, self.fr.modulus
         g1, g2 = self.pairing.g1, self.pairing.g2
-        dev = self.device if pk.host else pk.device
+        dev = self.device if pk.device is None else pk.device
         laps = Laps(dev)
         ni = pk.num_instance_total
         n = 1 << pk.domain_log2
+        if mesh is not None and (pk.host or n <= mesh.size):
+            mesh = None  # host backend or a domain no larger than the mesh: one device, as the reference
+        if mesh is not None and pk.staged:
+            raise ValueError("staged and mesh proving are exclusive")
 
         if pk.host:
             # u/v/w = (A z, B z, C z) by host row sums, lifted for the NTTs
@@ -587,18 +663,31 @@ class Groth16:
             z_can = limb.tensor(z, dev)
             z_mont = limb.to_mont(fr, z_can)
             laps.lap("pack_witness")
-            ua = prepared.a.matvec(z_mont)
-            va = prepared.b.matvec(z_mont)
-            wa = prepared.c.matvec(z_mont)
+            mats = (prepared.a, prepared.b, prepared.c)
+            if pk.staged:
+                # one COO matrix on the device at a time: each matvec is
+                # forced and its matrix's device copy freed before the next
+                ua, va, wa = (self._staged_matvec(m, z_mont) for m in mats)
+            else:
+                ua, va, wa = (m.matvec(z_mont) for m in mats)
             laps.lap("qap_matvec")
 
-        # one batched iNTT and coset NTT for u, v and w: (n_limbs, N, 3)
-        uc, vc, wc = nttmod.coset_ntt(fr, nttmod.intt(fr, torch.stack([ua, va, wa], dim=2))).unbind(2)
         g = nttmod.GENERATORS[fr.name]
         zg_inv = pow((pow(g, n, p) - 1) % p, -1, p)
-        zg = limb.tensor(limb.pack_mont(fr, zg_inv), dev).reshape(fr.n_limbs, 1)
+        if mesh is not None:
+            # each transform a four-step NTT sharded over the mesh, whose
+            # only exchange is one all-to-all; bit-exact with one device
+            def tr(v, **kw):
+                return pops.sharded_transform(fr, mesh, v, **kw)
+
+            uc, vc, wc = (tr(tr(v, inverse=True), coset=True) for v in (ua, va, wa))
+        else:
+            # one batched iNTT and coset NTT for u, v and w: (n_limbs, N, 3)
+            uc, vc, wc = nttmod.coset_ntt(fr, nttmod.intt(fr, torch.stack([ua, va, wa], dim=2))).unbind(2)
+        zg = limb.tensor(limb.pack_mont(fr, zg_inv), uc.device).reshape(fr.n_limbs, 1)
         hc = limb.mont_mul(fr, limb.sub(fr, limb.mont_mul(fr, uc, vc), wc), zg)
-        h_canon = limb.from_mont(fr, nttmod.coset_intt(fr, hc))[:, : n - 1]
+        h_coeffs = pops.sharded_coset_intt(fr, mesh, hc) if mesh is not None else nttmod.coset_intt(fr, hc)
+        h_canon = limb.from_mont(fr, h_coeffs)[:, : n - 1]
         laps.lap("h_poly_ntts")
 
         r, s = rng.randrange(p), rng.randrange(p)
@@ -611,8 +700,13 @@ class Groth16:
             h_msm = refc.msm(g1, h_ints, pk.h_query)
             l_msm = refc.msm(g1, z[ni:], pk.l_query) if z[ni:] else None
             laps.lap("host_msms")
+        elif pk.staged:
+            a_msm, b1_msm, b2_msm, h_msm, l_msm = _prove_msms_staged(g1, g2, ni, z_can, h_canon, pk, laps)
         else:
-            g1_sums, b2_sum = _prove_msms(g1, g2, ni, z_can, h_canon, pk)
+            if mesh is not None:
+                g1_sums, b2_sum = _prove_msms_sharded(mesh, g1, g2, ni, z_can, h_canon, pk)
+            else:
+                g1_sums, b2_sum = _prove_msms(g1, g2, ni, z_can, h_canon, pk)
             laps.lap("msm_kernels")
             g1_pts = jac.to_affine_ints(g1, g1_sums)
             b2_msm = jac.to_affine_ints(g2, b2_sum)
@@ -635,6 +729,13 @@ class Groth16:
         laps.lap("finalize")
         self.laps["prove"] = laps.rows
         return Proof(a=A, b=B2, c=C)
+
+    @staticmethod
+    def _staged_matvec(m: SparseFieldMatrix, z_mont: torch.Tensor) -> torch.Tensor:
+        out = m.matvec(z_mont)
+        out[:1, :1].cpu()  # forces the matvec before its matrix's device copy goes
+        m.drop_device()
+        return out
 
     # -- verify ---------------------------------------------------------------
 

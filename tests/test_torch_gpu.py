@@ -489,3 +489,41 @@ def test_merkle_tree_on_cuda_matches_cpu(cuda):
     cpu = MerkleTree.from_leaf_digests(params, leaves, device="cpu")
     assert gpu.device.type == "cuda"
     assert all(torch.equal(g.cpu(), c) for g, c in zip(gpu.levels, cpu.levels))
+
+
+def test_k8_takes_the_sharded_transforms_sub_transforms(cuda):
+    """The sharded transform's R-point sub-transforms (R the mesh size):
+    K8's one launch at 2, 4 and 8 points batched over 2^13 columns,
+    forward and inverse, bit-equal to its plain version."""
+    batch = 1 << 13
+    for log_n in (1, 2, 3):
+        for inverse in (False, True):
+            rev, table, n_inv = ntt._plan(BN254_FR, log_n, inverse, cuda)
+            x = _field(BN254_FR, batch << log_n, 40 + log_n, cuda).reshape(BN254_FR.n_limbs, 1 << log_n, batch)
+            x = x.contiguous()
+            got = ntt_kernel.transform(BN254_FR, x, table, rev, n_inv, inverse)
+            assert torch.equal(got, ntt_kernel.transform_plain(BN254_FR, x, table, rev, n_inv, inverse))
+
+
+def test_sharded_functions_on_ranks_sharing_the_card(cuda, tmp_path):
+    """Two gloo ranks on the card (their exchange through host memory) and
+    a 1-rank NCCL mesh: the four sharded transforms at 2^13 and a sharded
+    G1 MSM of 1000 points equal one device's."""
+    import torch_mesh_tasks as tasks
+    from openzl_tpu_torch.parallel.launch import RankPool
+
+    x = _field(BN254_FR, 1 << 13, 50).numpy()
+    rng = random.Random(51)
+    pts = [ref.scalar_mul(BN254_G1, rng.randrange(1, 1 << 20), ref.generator(BN254_G1)) for _ in range(64)]
+    pts = [pts[rng.randrange(64)] for _ in range(1000)]
+    ks = [rng.randrange(BN254_G1.scalar.modulus) for _ in range(1000)]
+    scal = limb.tensor(limb.pack(BN254_G1.scalar, np.array(ks, dtype=object)), cuda)
+    want = jac.to_affine_ints(BN254_G1, msm.msm(BN254_G1, scal, jac.from_affine_ints(BN254_G1, pts, cuda)))
+    for world, backend in ((2, "gloo"), (1, "nccl")):
+        with RankPool(world, backend, tmp_path, devices=["cuda:0"] * world, timeout=300) as pool:
+            for which, fn in (("ntt", ntt.ntt), ("intt", ntt.intt), ("coset_ntt", ntt.coset_ntt),
+                              ("coset_intt", ntt.coset_intt)):
+                one = fn(BN254_FR, limb.tensor(x, cuda)).cpu().numpy()
+                for got in pool.run(tasks.transform, world, "BN254_FR", which, x, "cuda:0"):
+                    assert np.array_equal(got, one), (backend, which)
+            assert pool.run(tasks.msm, world, "bn254_g1", ks, pts, "cuda:0") == [want] * world

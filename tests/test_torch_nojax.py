@@ -4,8 +4,11 @@
 `crypto/signature/`), sign and verify an Edwards Schnorr signature, run the
 1-link Groth16 slice, a Poseidon2 hash, a
 2^3-leaf Merkle build with path checks, a device-backend KZG commit (held
-against the host backend) and a `DensePoly` NTT product on the CPU, and
-check that none of the blocked modules was loaded."""
+against the host backend), a `DensePoly` NTT product, a sharded coset
+iNTT on a one-rank gloo mesh and a ratio proof on the CPU, and
+check that none of the blocked modules was loaded. The source scan covers
+`parallel/`, `ratio.py`, `chip_smoke.py` and the rank tasks of the
+multi-rank tests (`tests/torch_mesh_tasks.py`), which the ranks import."""
 
 import os
 import pathlib
@@ -35,7 +38,8 @@ SCRIPT = textwrap.dedent(
     for name in walked:
         importlib.import_module(name)
     for name in ("eclair.gadgets", "eclair.measure", "curves.edwards", "crypto.algebra", "crypto.ec_gadget",
-                 "crypto.signature", "crypto.signature.schnorr", "crypto.signature.convert"):
+                 "crypto.signature", "crypto.signature.schnorr", "crypto.signature.convert", "parallel",
+                 "parallel.mesh", "parallel.ops", "parallel.launch", "proof_systems.ratio"):
         assert "openzl_tpu_torch." + name in walked, name
 
     from openzl_tpu_torch.crypto.signature.schnorr import EdSchnorr
@@ -90,6 +94,21 @@ SCRIPT = textwrap.dedent(
     a, b = (DensePoly.rand(BN254_FR, 300, rng, device="cpu") for _ in range(2))
     assert (a * b).evaluate(7) == a.evaluate(7) * b.evaluate(7) % BN254_FR.modulus
 
+    import os, tempfile, torch
+    import torch.distributed as dist
+    from openzl_tpu_torch.ops import ntt
+    from openzl_tpu_torch.parallel import data_mesh, sharded_coset_intt
+    from openzl_tpu_torch.proof_systems import RatioProof
+
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    dist.init_process_group("gloo", store=dist.FileStore(store, 1), rank=0, world_size=1)
+    mesh = data_mesh(device="cpu")
+    x = limb.tensor(limb.pack_mont(BN254_FR, list(range(16))))
+    assert torch.equal(sharded_coset_intt(BN254_FR, mesh, x), ntt.coset_intt(BN254_FR, x))
+    dist.destroy_process_group()
+    ratio = RatioProof.prove(BN254, b"challenge", 7, random.Random(5))
+    assert ratio.verify(BN254, b"challenge") and not ratio.verify(BN254, b"other")
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("NOJAX-OK")
@@ -115,6 +134,10 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|openzl_tpu)\b(?!_)", r
 
 
 def test_port_sources_never_import_jax():
-    sources = [ROOT / "chip_smoke.py", *(ROOT / "openzl_tpu_torch").rglob("*.py")]
+    sources = [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_tasks.py",
+               *(ROOT / "openzl_tpu_torch").rglob("*.py")]
+    names = {str(path.relative_to(ROOT)) for path in sources}
+    assert {"openzl_tpu_torch/parallel/mesh.py", "openzl_tpu_torch/parallel/ops.py",
+            "openzl_tpu_torch/parallel/launch.py", "openzl_tpu_torch/proof_systems/ratio.py"} <= names
     for path in sources:
         assert not _FORBIDDEN.search(path.read_text()), path
